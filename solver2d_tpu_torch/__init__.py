@@ -1,0 +1,20 @@
+"""solver2d_tpu_torch: the lane-batched 2D rigid-body step in PyTorch, with
+its narrowphase as a hand-written CUDA kernel for Hopper.
+
+The port of the JAX package `solver2d_tpu` (which stays as the reference).
+It imports neither JAX nor that package. Entry points create tensors on
+`device="cuda"` unless the caller asks for the CPU; on a CPU tensor each
+kernel wrapper runs the kernel's plain PyTorch twin.
+"""
+
+from .config import BodyType, SimConfig, SolverType
+from .models.contact_scenes import pyramid_world
+from .parallel.batch import replicate
+from .state import State, state_from_numpy, to_numpy
+from .step import step_batch
+from .world import World
+
+__all__ = [
+    "BodyType", "SimConfig", "SolverType", "State", "World",
+    "pyramid_world", "replicate", "state_from_numpy", "step_batch", "to_numpy",
+]

@@ -1,0 +1,239 @@
+"""Grid broadphase and persistent contact matching on tensors.
+
+Port of the JAX package's `ops/broadphase.py` for the lane step: fat-AABB
+hysteresis (reference: src/world.c:286-297), the hashed uniform grid pair
+finder with the pair rules of s2PairQueryCallback (src/broad_phase.c:166-258),
+and the lane-batched match of the new pair table against the old one, which
+carries manifolds, impulses and GJK caches (src/contact.c:296-359).
+
+Integer fields stay int32 tensors throughout: no field rides a float pack.
+Sorts whose keys can tie are stable, as `jnp.argsort` is.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import AABB_MARGIN, INT32_MAX, SimConfig
+from ..state import Contacts, Shapes
+
+I32 = torch.int32
+
+
+def wrap_index(idx, n: int):
+    """JAX indexing semantics for an index that may be -1: wrap negatives
+    (the JAX gathers read row n-1 for a dead slot's -1 owner)."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def update_fat_aabbs(fat, aabbs, body_type):
+    """Enlarge-on-escape hysteresis (reference: src/world.c:286-297). `aabbs`
+    include the speculative margin; static shapes get no extra margin
+    (src/shape.c:58). Shapes [..., S, 4]; body_type [..., S]."""
+    contained = (
+        (fat[..., 0] <= aabbs[..., 0]) & (fat[..., 1] <= aabbs[..., 1])
+        & (aabbs[..., 2] <= fat[..., 2]) & (aabbs[..., 3] <= fat[..., 3])
+    )
+    margin = torch.where(body_type == 0, 0.0, AABB_MARGIN).to(aabbs.dtype)
+    grown = aabbs + torch.stack([-margin, -margin, margin, margin], dim=-1)
+    return torch.where(contained[..., None], fat, grown)
+
+
+class PairResult(NamedTuple):
+    shape_a: torch.Tensor  # i32 [C]
+    shape_b: torch.Tensor  # i32 [C]
+    key: torch.Tensor      # i32 [C] a * max_shapes + b, INT32_MAX when empty
+    valid: torch.Tensor    # bool [C]
+    count: torch.Tensor    # i32 [] candidate pairs found
+    overflow: torch.Tensor  # bool []
+
+
+def _compact_keys(flat_key, C: int):
+    """The valid (!= INT32_MAX) keys, the first C of them in flat order,
+    sorted ascending and padded with INT32_MAX. Returns (keys [C], count)."""
+    vmask = flat_key != INT32_MAX
+    count = vmask.sum().to(I32)
+    kept = flat_key[vmask][:C]
+    keys = torch.full((C,), INT32_MAX, dtype=I32, device=flat_key.device)
+    keys[: kept.shape[0]] = kept
+    return torch.sort(keys).values, count
+
+
+def jointed_body_keys(joints, config: SimConfig):
+    """Sorted canonical body-pair keys of joints with collideConnected=False
+    (INT32_MAX padding)."""
+    ba, bb = joints.body_a, joints.body_b
+    key = torch.minimum(ba, bb) * config.max_bodies + torch.maximum(ba, bb)
+    key = torch.where(joints.alive & ~joints.collide_connected, key, INT32_MAX)
+    return torch.sort(key).values
+
+
+def _pair_rules(a, b, jointed_keys, max_bodies: int):
+    """s2PairQueryCallback's rules (reference: src/broad_phase.c:166-258) on
+    per-candidate shape fields; `a` and `b` are dicts of broadcastable
+    tensors (fat, body, group, mask, cat, alive, dyn)."""
+    fa, fb = a["fat"], b["fat"]
+    overlap = (
+        (fa[..., 0] <= fb[..., 2]) & (fb[..., 0] <= fa[..., 2])
+        & (fa[..., 1] <= fb[..., 3]) & (fb[..., 1] <= fa[..., 3])
+    )
+    valid = overlap & a["alive"] & b["alive"]
+    valid &= a["body"] != b["body"]
+    valid &= a["dyn"] | b["dyn"]
+    # filters (reference: src/contact.h:70-79)
+    ga, gb = a["group"], b["group"]
+    same_group = (ga == gb) & (ga != 0)
+    mask_ok = ((a["mask"] & b["cat"]) != 0) & ((a["cat"] & b["mask"]) != 0)
+    valid &= torch.where(same_group, ga > 0, mask_ok)
+    # joint-connected suppression (reference: src/body.c:386-417)
+    bkey = torch.minimum(a["body"], b["body"]) * max_bodies + torch.maximum(a["body"], b["body"])
+    valid &= ~(bkey[..., None] == jointed_keys).any(-1)
+    return valid
+
+
+def _cell_hash(cx, cy):
+    """Spatial hash of int32 cell coords with int32 wraparound, masked to 23
+    bits (the JAX package's hash, bit for bit)."""
+    h = cx * -1640531527 + cy * 97143011
+    h = h ^ (h >> 13)
+    return h & 0x7FFFFF
+
+
+def find_pairs_grid(shapes: Shapes, body_type, jointed_keys, config: SimConfig) -> PairResult:
+    """Uniform-grid pair finding on one world: small shapes bin by fat-AABB
+    center into cells sorted by cell hash; each shape tests the <=
+    cell_capacity occupants of its half neighbourhood {self, E, NW, N, NE};
+    shapes larger than a cell form the big list, tested against everything."""
+    S = config.max_shapes
+    M = config.cell_capacity
+    G = config.max_big_shapes
+    dev = shapes.fat_aabb.device
+    cell = torch.tensor(config.grid_cell, dtype=torch.float32, device=dev)
+    fat = shapes.fat_aabb
+    alive = shapes.alive
+
+    w = fat[:, 2] - fat[:, 0]
+    h = fat[:, 3] - fat[:, 1]
+    big = alive & ((w > cell) | (h > cell))
+    small = alive & ~big
+
+    cx = torch.floor(0.5 * (fat[:, 0] + fat[:, 2]) / cell).to(I32)
+    cy = torch.floor(0.5 * (fat[:, 1] + fat[:, 3]) / cell).to(I32)
+    hashes = torch.where(small, _cell_hash(cx, cy), INT32_MAX)
+
+    order = torch.argsort(hashes, stable=True).to(I32)
+    sorted_hash = hashes[order]
+
+    offsets = [(0, 0), (1, 0), (-1, 1), (0, 1), (1, 1)]
+    NO = len(offsets)
+    nh_all = torch.stack([_cell_hash(cx + dx, cy + dy) for dx, dy in offsets])  # [NO,S]
+    lo = torch.searchsorted(sorted_hash, nh_all.reshape(-1), side="left").to(I32).reshape(NO, S)
+    lanes = torch.arange(M, dtype=I32, device=dev)
+    cand_rank = lo[:, :, None] + lanes                                    # [NO,S,M]
+    pos = torch.clamp(cand_rank, max=S - 1)
+    in_range = cand_rank < S
+    # cell-capacity overflow: the (M+1)-th occupant of a looked-up bucket
+    # still carries the neighbour hash
+    ovf_rank = lo + M
+    ovf_hash = sorted_hash[torch.clamp(ovf_rank, max=S - 1)]
+    overflow = (small[None, :] & (ovf_rank < S) & (ovf_hash == nh_all)).any()
+
+    grid_cand = order[pos.permute(1, 0, 2).reshape(S, NO * M)]          # [S, NO*M]
+    grid_valid = (in_range & small[None, :, None]).permute(1, 0, 2).reshape(S, NO * M)
+
+    # big-shape list: slot r holds the r-th big shape (the last slot the
+    # largest index once the list overflows), padded with 0
+    idx = torch.arange(S, dtype=I32, device=dev)
+    nbig = big.sum()
+    big_cells = torch.where(big, torch.clamp(torch.cumsum(big, 0) - 1, max=G - 1), G)
+    big_idx = torch.zeros((G + 1,), dtype=I32, device=dev).scatter_reduce(
+        0, big_cells, idx, "amax", include_self=True
+    )[:G]
+    big_slot_valid = torch.arange(G, device=dev) < torch.clamp(nbig, max=G)
+    overflow = overflow | (nbig > G)
+
+    K = NO * M + G
+    a_idx = idx[:, None].expand(S, K)
+    b_idx = torch.cat([grid_cand, big_idx[None, :].expand(S, G)], dim=1)
+    valid = torch.cat([grid_valid, big_slot_valid[None, :] & alive[:, None]], dim=1)
+
+    # a candidate is real iff its own cell hash equals the looked-up
+    # neighbour hash (dead and big shapes carry -1)
+    own_hash = torch.where(small, hashes, -1)
+    hash_ok = own_hash[b_idx[:, : NO * M]] == nh_all.t()[:, :, None].expand(S, NO, M).reshape(S, NO * M)
+    # own-cell block: a<b visits each in-cell pair once
+    half_ok = torch.cat(
+        [a_idx[:, :M] < b_idx[:, :M], torch.ones((S, (NO - 1) * M), dtype=torch.bool, device=dev)], dim=1
+    )
+    # big-b columns: small-a keeps; big-big dedups by a<b
+    big_ok = small[:, None] | (a_idx[:, NO * M:] < b_idx[:, NO * M:])
+    valid &= torch.cat([hash_ok & half_ok, big_ok], dim=1)
+
+    B = body_type.shape[0]
+    fields = dict(
+        fat=fat, body=shapes.body, group=shapes.filter_group, mask=shapes.filter_mask,
+        cat=shapes.filter_category, alive=alive,
+        dyn=body_type[wrap_index(shapes.body, B)] == 2,
+    )
+    rows_a = {k: v[:, None] for k, v in fields.items()}
+    rows_b = {k: v[b_idx] for k, v in fields.items()}
+    valid &= _pair_rules(rows_a, rows_b, jointed_keys, config.max_bodies)
+
+    pair_key = torch.where(valid, torch.minimum(a_idx, b_idx) * S + torch.maximum(a_idx, b_idx), INT32_MAX)
+    C = config.max_contacts
+    top_key, count = _compact_keys(pair_key.reshape(-1), C)
+    # drop duplicates (only under a neighbour-cell hash collision), keep sorted
+    dup = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev), top_key[1:] == top_key[:-1]])
+    top_key = torch.sort(torch.where(dup, INT32_MAX, top_key)).values
+    filled = top_key != INT32_MAX
+    sa = torch.where(filled, top_key // S, 0).to(I32)
+    sb = torch.where(filled, top_key % S, 0).to(I32)
+    overflow = overflow | (count > C)
+    return PairResult(sa, sb, top_key, filled, count, overflow)
+
+
+def match_contacts_lane(old: Contacts, pairs0: PairResult, shapes0: Shapes) -> Contacts:
+    """Lane-batched persistent matching for a lockstep batch [W, C]: the
+    slot layout, searched once on world 0's keys, is shared by every world;
+    each world's carried values follow it. Slots without a live old pair
+    start from zero (color -1)."""
+    W, Cn = old.key.shape
+    new_key = pairs0.key
+    old_key0 = old.key[0]
+    pos = torch.clamp(torch.searchsorted(old_key0, new_key, side="left"), max=Cn - 1)
+    found = (old_key0[pos] == new_key) & (new_key != INT32_MAX) & old.alive[0][pos]
+
+    def carry(x, fill):
+        v = x[:, pos]
+        f = found.reshape((1, Cn) + (1,) * (v.dim() - 2))
+        return torch.where(f, v, fill)
+
+    sa, sb = pairs0.shape_a, pairs0.shape_b
+    friction = torch.sqrt(shapes0.friction[sa] * shapes0.friction[sb])        # contact.c:42-45
+    restitution = torch.maximum(shapes0.restitution[sa], shapes0.restitution[sb])  # :47-52
+    color0 = torch.where(found, old.color[0][pos], -1)
+
+    def bc(x):
+        return x[None].expand((W,) + x.shape).contiguous()
+
+    return Contacts(
+        key=bc(new_key), shape_a=bc(sa), shape_b=bc(sb),
+        body_a=bc(shapes0.body[sa]), body_b=bc(shapes0.body[sb]),
+        friction=bc(friction), restitution=bc(restitution),
+        normal=carry(old.normal, 0.0),
+        anchor_a=carry(old.anchor_a, 0.0),
+        anchor_b=carry(old.anchor_b, 0.0),
+        separation=carry(old.separation, 0.0),
+        normal_impulse=carry(old.normal_impulse, 0.0),
+        tangent_impulse=carry(old.tangent_impulse, 0.0),
+        point_id=carry(old.point_id, 0),
+        persisted=carry(old.persisted, False),
+        point_count=carry(old.point_count, 0),
+        cache_count=carry(old.cache_count, 0),
+        cache_index_a=carry(old.cache_index_a, 0),
+        cache_index_b=carry(old.cache_index_b, 0),
+        color=bc(color0),
+        alive=bc(pairs0.valid),
+    )

@@ -1,0 +1,141 @@
+"""Persistent incremental coloring of the contact graph and the color
+buckets of the lane solve.
+
+Port of the JAX package's `ops/coloring.py` (`assign_colors`,
+`build_body_map`, `build_color_buckets`). Colors fix the Gauss-Seidel order,
+so every integer output here equals the JAX function's. Scatters reduce
+with max or add over int32, whose result does not depend on the order of
+the updates.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+I32 = torch.int32
+
+
+def _hash_priority(idx):
+    """Injective pseudo-random priority: Knuth multiplicative hash with int32
+    wraparound (2654435761 as -1640531527), reduced mod 2^31."""
+    return (idx * -1640531527) & 0x7FFFFFFF
+
+
+def _scatter_max(target, idx, vals):
+    return target.scatter_reduce(0, idx.long(), vals, "amax", include_self=True)
+
+
+def _scatter_add(target, idx, vals):
+    return target.index_add(0, idx.long(), vals)
+
+
+def assign_colors(carried, body_a, body_b, active, dynamic_mask, num_bodies: int,
+                  max_colors: int, rounds: int = 8, bucket_cap: int = 0):
+    """Validate the colors carried from the last step, then color the new
+    constraints with first-fit rounds under hashed priorities; with
+    `bucket_cap` > 0 a color whose population fills its bucket takes no new
+    constraints. Returns (color i32 [N] with -1 for uncolored, overflow i32
+    count). Requires max_colors <= 30 (an int32 bitmask of used colors)."""
+    assert max_colors <= 30, "assign_colors packs colors into an int32 bitmask"
+    N = body_a.shape[0]
+    dev = body_a.device
+    idx = torch.arange(N, dtype=I32, device=dev)
+    pri = _hash_priority(idx)
+
+    dyn_a = dynamic_mask[body_a]
+    dyn_b = dynamic_mask[body_b]
+    slot_a = torch.where(dyn_a, body_a, num_bodies)
+    slot_b = torch.where(dyn_b, body_b, num_bodies)
+
+    # out-of-range carried colors drop to -1 and recolor
+    color = torch.where(active & (carried >= 0) & (carried < max_colors), carried, -1)
+    full_mask = (1 << max_colors) - 1
+    tbl_size = (num_bodies + 1) * max_colors
+    slots_ab = torch.cat([slot_a, slot_b])
+
+    def validate(color):
+        """Drop to -1 any colored constraint that does not own its (body,
+        color) cell at both dynamic endpoints (priority max wins)."""
+        colored = active & (color >= 0)
+        c = torch.clamp(color, min=0)
+        claim = torch.where(colored, pri, -1)
+        cells = torch.where(torch.cat([colored, colored]), slots_ab * max_colors + torch.cat([c, c]), tbl_size)
+        tbl = _scatter_max(torch.full((tbl_size + 1,), -1, dtype=I32, device=dev), cells, torch.cat([claim, claim]))
+        got = tbl[cells]
+        own = (~dyn_a | (got[:N] == pri)) & (~dyn_b | (got[N:] == pri))
+        return torch.where(colored & ~own, -1, color)
+
+    color = validate(color)
+    bits = 1 << torch.arange(max_colors, dtype=I32, device=dev)
+    r = 0
+    # first-fit rounds until nothing is uncolored (zero rounds in a steady
+    # state where every contact persists)
+    while r < rounds and bool((active & (color < 0)).any()):
+        ok = active & (color >= 0)
+        # used-color bitmask per body; surviving colors are distinct per body,
+        # so the add is a bitwise or
+        bit = torch.where(ok, 1 << torch.clamp(color, min=0), 0).to(I32)
+        ok2 = torch.cat([ok, ok])
+        used = _scatter_add(
+            torch.zeros((num_bodies + 1,), dtype=I32, device=dev),
+            torch.where(ok2, slots_ab, num_bodies), torch.cat([bit, bit]),
+        )
+        rows = used[slots_ab]
+        free = ~(torch.where(dyn_a, rows[:N], 0) | torch.where(dyn_b, rows[N:], 0)) & full_mask
+        if bucket_cap > 0:
+            cnt = _scatter_add(
+                torch.zeros((max_colors + 1,), dtype=I32, device=dev),
+                torch.where(ok, color, max_colors), torch.ones((N,), dtype=I32, device=dev),
+            )
+            full_colors = torch.where(cnt[:max_colors] >= bucket_cap, bits, 0).sum().to(I32)
+            free = free & ~full_colors
+        lowbit = free & -free
+        # index of the lowest set bit (exact for powers of two)
+        newc = (torch.frexp(torch.clamp(lowbit, min=1).to(torch.float32)).exponent - 1).to(I32)
+        propose = active & (color < 0) & (free != 0)
+        color = validate(torch.where(propose, newc, color))
+        r += 1
+    overflow = (active & (color < 0)).sum().to(I32)
+    return color, overflow
+
+
+def build_body_map(body_a, body_b, color, active, write_a, write_b, num_bodies: int, max_colors: int):
+    """slot[b, k] = index of the color-k constraint that writes body b, or -1
+    (conflicting writers resolve to the largest index)."""
+    N = body_a.shape[0]
+    idx = torch.arange(N, dtype=I32, device=body_a.device)
+    c = torch.clamp(color, 0, max_colors - 1)
+    sink = num_bodies * max_colors
+    cell_a = torch.where(write_a & active, body_a * max_colors + c, sink)
+    cell_b = torch.where(write_b & active, body_b * max_colors + c, sink)
+    slot = _scatter_max(
+        torch.full((num_bodies * max_colors + 1,), -1, dtype=I32, device=body_a.device),
+        torch.cat([cell_a, cell_b]), torch.cat([idx, idx]),
+    )
+    return slot[: num_bodies * max_colors].reshape(num_bodies, max_colors)
+
+
+def build_color_buckets(color, active, max_colors: int, cap: int):
+    """Color-major bucket table: bucket[k*cap + r] = the r-th color-k
+    constraint in index order, or -1. Constraints past a color's cap are
+    dropped for the step and lose their color. Returns (bucket i32
+    [max_colors*cap], new_color i32 [N], dropped i32 [])."""
+    N = color.shape[0]
+    K = max_colors
+    dev = color.device
+    idx = torch.arange(N, dtype=I32, device=dev)
+    key = torch.where(active & (color >= 0), torch.clamp(color, 0, K - 1), K).to(I32)
+    order = torch.argsort(key * N + idx).to(I32)  # keys are unique
+    skey = key[order]
+    starts = torch.searchsorted(skey, torch.arange(K, dtype=I32, device=dev), side="left").to(I32)
+    rank = idx - starts[torch.clamp(skey, 0, K - 1)]
+    ok = (skey < K) & (rank < cap)
+    cell = torch.where(ok, torch.clamp(skey, 0, K - 1) * cap + rank, K * cap)
+    table = _scatter_max(torch.full((K * cap + 1,), -1, dtype=I32, device=dev), cell, torch.where(ok, order, -1))
+    bucket = table[: K * cap]
+
+    dropped_sorted = (skey < K) & ~ok
+    drop_tbl = _scatter_max(torch.zeros((N,), dtype=I32, device=dev), order, dropped_sorted.to(I32))
+    new_color = torch.where(drop_tbl > 0, -1, color)
+    return bucket, new_color, dropped_sorted.sum().to(I32)

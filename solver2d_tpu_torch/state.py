@@ -1,0 +1,222 @@
+"""Structure-of-arrays world state as dataclasses of tensors.
+
+Mirrors the JAX package's `state.py` field by field, so that a state can be
+carried across in either direction (`state_from_numpy`, `to_numpy`). A single
+world has the JAX shapes; a batch of worlds (`parallel.batch.replicate`) has a
+leading `W` dim on every tensor.
+
+Differences from the JAX layout:
+- filter bits are int32 tensors holding the uint32 bit patterns (torch has
+  no general uint32 arithmetic); `state_from_numpy`/`to_numpy` reinterpret;
+- the TGS_Sticky friction-anchor fields of `Contacts` are absent: they are
+  zero-width for every solver the port runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# int32 fields that hold uint32 bit patterns in the JAX state
+_UINT32_FIELDS = frozenset({"filter_category", "filter_mask"})
+
+
+class _Tree:
+    """Mixin: map a function over the tensor fields (recursing into nested
+    dataclasses)."""
+
+    def map(self, fn):
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out[f.name] = v.map(fn) if isinstance(v, _Tree) else fn(v)
+        return type(self)(**out)
+
+    def to(self, device):
+        return self.map(lambda t: t.to(device))
+
+
+@dataclasses.dataclass
+class Bodies(_Tree):
+    """SoA bodies (reference: src/body.h:16-76). `position` is the center of
+    mass, `origin` the body origin; rotations are (sin, cos)."""
+
+    type: torch.Tensor           # i32 [B] BodyType
+    origin: torch.Tensor         # f32 [B,2]
+    position: torch.Tensor       # f32 [B,2]
+    delta_pos: torch.Tensor      # f32 [B,2]
+    delta_pos0: torch.Tensor     # f32 [B,2] (XPBD scratch, carried)
+    rot: torch.Tensor            # f32 [B,2]
+    rot0: torch.Tensor           # f32 [B,2] (XPBD scratch, carried)
+    local_center: torch.Tensor   # f32 [B,2]
+    v: torch.Tensor              # f32 [B,2]
+    w: torch.Tensor              # f32 [B]
+    v0: torch.Tensor             # f32 [B,2] (XPBD scratch, carried)
+    w0: torch.Tensor             # f32 [B]
+    force: torch.Tensor          # f32 [B,2]
+    torque: torch.Tensor         # f32 [B]
+    mass: torch.Tensor           # f32 [B]
+    inv_mass: torch.Tensor       # f32 [B]
+    inertia: torch.Tensor        # f32 [B]
+    inv_inertia: torch.Tensor    # f32 [B]
+    linear_damping: torch.Tensor   # f32 [B]
+    angular_damping: torch.Tensor  # f32 [B]
+    gravity_scale: torch.Tensor    # f32 [B]
+    alive: torch.Tensor          # bool [B]
+
+
+@dataclasses.dataclass
+class Shapes(_Tree):
+    """SoA shapes, every shape a rounded convex polygon padded to 8 vertices
+    (reference: src/shape.h:23-48). AABBs are (lo.x, lo.y, hi.x, hi.y)."""
+
+    body: torch.Tensor           # i32 [S] owning body (-1 for dead slots)
+    source_type: torch.Tensor    # i32 [S] ShapeType
+    verts: torch.Tensor          # f32 [S,8,2] body-origin-local
+    normals: torch.Tensor        # f32 [S,8,2]
+    count: torch.Tensor          # i32 [S]
+    radius: torch.Tensor         # f32 [S]
+    friction: torch.Tensor       # f32 [S]
+    restitution: torch.Tensor    # f32 [S]
+    density: torch.Tensor        # f32 [S]
+    filter_category: torch.Tensor  # i32 [S] (uint32 bits)
+    filter_mask: torch.Tensor      # i32 [S] (uint32 bits)
+    filter_group: torch.Tensor     # i32 [S]
+    aabb: torch.Tensor           # f32 [S,4]
+    fat_aabb: torch.Tensor       # f32 [S,4]
+    alive: torch.Tensor          # bool [S]
+
+
+@dataclasses.dataclass
+class Contacts(_Tree):
+    """Persistent contact table sorted by pair key (reference:
+    src/contact.h:21-61), with the GJK warm-start cache
+    (include/solver2d/distance.h:37-45) and the persistent color."""
+
+    key: torch.Tensor            # i32 [C] shapeA * S + shapeB; INT32_MAX when empty
+    shape_a: torch.Tensor        # i32 [C]
+    shape_b: torch.Tensor        # i32 [C]
+    body_a: torch.Tensor         # i32 [C]
+    body_b: torch.Tensor         # i32 [C]
+    friction: torch.Tensor       # f32 [C]
+    restitution: torch.Tensor    # f32 [C]
+    normal: torch.Tensor         # f32 [C,2]
+    anchor_a: torch.Tensor       # f32 [C,2,2]
+    anchor_b: torch.Tensor       # f32 [C,2,2]
+    separation: torch.Tensor     # f32 [C,2]
+    normal_impulse: torch.Tensor   # f32 [C,2]
+    tangent_impulse: torch.Tensor  # f32 [C,2]
+    point_id: torch.Tensor       # i32 [C,2]
+    persisted: torch.Tensor      # bool [C,2]
+    point_count: torch.Tensor    # i32 [C]
+    cache_count: torch.Tensor    # i32 [C]
+    cache_index_a: torch.Tensor  # i32 [C,3]
+    cache_index_b: torch.Tensor  # i32 [C,3]
+    color: torch.Tensor          # i32 [C] (-1 = unassigned)
+    alive: torch.Tensor          # bool [C]
+
+
+@dataclasses.dataclass
+class Joints(_Tree):
+    """SoA revolute + mouse joints (reference: src/joint.h:28-102). The lane
+    step solves no joints; the broadphase reads them for collide-connected
+    suppression."""
+
+    type: torch.Tensor
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    local_anchor_a: torch.Tensor
+    local_anchor_b: torch.Tensor
+    collide_connected: torch.Tensor
+    reference_angle: torch.Tensor
+    lower_angle: torch.Tensor
+    upper_angle: torch.Tensor
+    enable_limit: torch.Tensor
+    enable_motor: torch.Tensor
+    motor_speed: torch.Tensor
+    max_motor_torque: torch.Tensor
+    target: torch.Tensor
+    hertz: torch.Tensor
+    damping_ratio: torch.Tensor
+    impulse: torch.Tensor
+    motor_impulse: torch.Tensor
+    lower_impulse: torch.Tensor
+    upper_impulse: torch.Tensor
+    color: torch.Tensor
+    alive: torch.Tensor
+
+
+@dataclasses.dataclass
+class Diagnostics(_Tree):
+    """Per-step counters (reference: include/solver2d/timer.h:8-17)."""
+
+    contact_count: torch.Tensor    # i32 []
+    pair_count: torch.Tensor       # i32 []
+    pair_overflow: torch.Tensor    # bool []
+    color_overflow: torch.Tensor   # i32 []
+    max_penetration: torch.Tensor  # f32 []
+    step_id: torch.Tensor          # i32 []
+
+
+@dataclasses.dataclass
+class State(_Tree):
+    bodies: Bodies
+    shapes: Shapes
+    contacts: Contacts
+    joints: Joints
+    gravity: torch.Tensor  # f32 [2]
+    diag: Diagnostics
+
+
+def _get(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def from_numpy(cls, tree, device="cuda"):
+    """Build a state dataclass `cls` (State, Bodies, Contacts, ...) from a
+    tree of numpy arrays with its field names: an object with those
+    attributes or nested dicts. Fields the port does not keep (the
+    zero-width sticky anchors of the JAX contacts) are ignored."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        sub = _get(tree, f.name)
+        if f.name in _SUBTREES:
+            out[f.name] = from_numpy(_SUBTREES[f.name], sub, device)
+            continue
+        a = np.asarray(sub)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[f.name] = torch.from_numpy(np.array(a, copy=True)).to(device)
+    return cls(**out)
+
+
+_SUBTREES = {
+    "bodies": Bodies, "shapes": Shapes, "contacts": Contacts,
+    "joints": Joints, "diag": Diagnostics,
+}
+
+
+def state_from_numpy(tree, device="cuda") -> State:
+    """Build a `State` from the JAX `State`'s leaves as numpy arrays (for
+    example the JAX state after `np.asarray` on every leaf)."""
+    return from_numpy(State, tree, device)
+
+
+def to_numpy(state) -> dict:
+    """Nested dicts of numpy arrays with the field names and dtypes of the
+    JAX state (filter bits back to uint32); takes any state dataclass."""
+
+    def conv(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, _Tree):
+                out[f.name] = conv(v)
+            else:
+                a = v.detach().cpu().numpy()
+                out[f.name] = a.view(np.uint32) if f.name in _UINT32_FIELDS else a
+        return out
+
+    return conv(state)

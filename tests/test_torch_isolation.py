@@ -1,0 +1,49 @@
+"""The port runs where JAX is absent: the machine with the card has no JAX,
+and an import of it (or of the JAX package, which imports it) from the port
+or from chip_smoke.py would end the run there."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None           # any import of jax now raises
+    sys.modules["solver2d_tpu"] = None  # as does any import of the JAX package
+    import torch
+    torch.set_num_threads(1)
+    import chip_smoke
+    import solver2d_tpu_torch
+    from solver2d_tpu_torch import SolverType, pyramid_world, replicate, step_batch
+    state, cfg = pyramid_world(SolverType.TGS_SOFT, 3)[0].freeze(device="cpu", contact_bucket_cap=-1)
+    out = step_batch(replicate(state, 2), 1.0 / 60.0, cfg)
+    assert int(out.diag.step_id[0]) == 1 and bool(torch.isfinite(out.bodies.position).all())
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "solver2d_tpu"))
+    assert not [m for m in loaded if sys.modules[m] is not None], loaded
+    print("isolated ok")
+    """
+)
+
+
+def test_port_and_chip_smoke_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "isolated ok" in proc.stdout
+
+
+def test_no_jax_import_in_port_sources():
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|solver2d_tpu)\b", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "solver2d_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = [f for f in files if pat.search(open(f).read())]
+    assert not hits, hits
