@@ -1,5 +1,6 @@
-"""solver2d_tpu_torch: the lane-batched 2D rigid-body step in PyTorch, with
-its narrowphase as a hand-written CUDA kernel for Hopper.
+"""solver2d_tpu_torch: batched 2D rigid-body steps in PyTorch, with the
+narrowphase (K2) and the fused soft solve (K1) as hand-written CUDA kernels
+for Hopper.
 
 The port of the JAX package `solver2d_tpu` (which stays as the reference).
 It imports neither JAX nor that package. Entry points create tensors on
@@ -9,12 +10,13 @@ kernel wrapper runs the kernel's plain PyTorch twin.
 
 from .config import BodyType, SimConfig, SolverType
 from .models.contact_scenes import pyramid_world
-from .parallel.batch import replicate
+from .models.joint_scenes import bridge
+from .parallel.batch import batched_step, replicate
 from .state import State, state_from_numpy, to_numpy
 from .step import step_batch
 from .world import World
 
 __all__ = [
-    "BodyType", "SimConfig", "SolverType", "State", "World",
+    "BodyType", "SimConfig", "SolverType", "State", "World", "batched_step", "bridge",
     "pyramid_world", "replicate", "state_from_numpy", "step_batch", "to_numpy",
 ]

@@ -1,10 +1,15 @@
-"""Simulation constants and the configuration of the lane-batched step.
+"""Simulation constants and the configuration of the port's two steps.
 
 An own copy of the constants and enums of the JAX package's `config.py`
 (reference: include/solver2d/constants.h:6-22). `SimConfig` keeps only the
-fields the lane-batched step reads: the port runs one pipeline (grid
-broadphase, lane-major narrowphase, shared-structure contact solve, no
-joints), so the JAX package's switches between pipelines are constants here.
+fields the port's steps read. Both run the grid broadphase and the
+lane-major narrowphase; `lane_solve` picks the step:
+
+- True: the lane-batched step (`step.step_batch`): shared world-0 structure,
+  bucketed contact solve, no joints;
+- False: the per-world step (`step.step`, `parallel.batched_step`): each
+  world's own pairs and colors, and the fused TGS_Soft solve (kernel K1)
+  with soft revolute and mouse joints.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ AABB_MARGIN = 0.1
 MAX_POLYGON_VERTICES = 8
 MAX_BAUMGARTE_VELOCITY = 4.0
 CONTACT_HERTZ = 30.0
+JOINT_HERTZ = 60.0
 
 # Soft-constraint damping ratio (reference: src/solve_common.c:266)
 CONTACT_ZETA = 10.0
@@ -43,6 +49,8 @@ class SolverType(enum.IntEnum):
 
 
 LANE_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.TGS_SOFT})
+# Solvers of the per-world step's fused solve (the TGS_Soft script of K1)
+FUSED_SOLVERS = frozenset({SolverType.TGS_SOFT})
 
 
 class BodyType(enum.IntEnum):
@@ -62,7 +70,7 @@ class ShapeType(enum.IntEnum):
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """Static configuration of the lane-batched step.
+    """Static configuration of a step.
 
     The defaults are the JAX package's; `World.freeze` sizes the capacities
     and the grid from the scene."""
@@ -84,8 +92,11 @@ class SimConfig:
     gjk_iters: int = 20          # fixed GJK trip count
 
     max_colors: int = 16         # colors of the contact graph (<= 30)
-    contact_bucket_cap: int = 0  # per-color bucket capacity of the solve
-    color_rounds: int = 8        # first-fit rounds for new contacts per step
+    joint_max_colors: int = 8    # colors of the joint graph (<= 30)
+    contact_bucket_cap: int = 0  # per-color bucket capacity of the lane solve
+    color_rounds: int = 8        # first-fit rounds for new constraints per step
+
+    lane_solve: bool = True      # the lane-batched step; False: the per-world step
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

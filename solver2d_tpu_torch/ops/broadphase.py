@@ -1,10 +1,12 @@
 """Grid broadphase and persistent contact matching on tensors.
 
-Port of the JAX package's `ops/broadphase.py` for the lane step: fat-AABB
-hysteresis (reference: src/world.c:286-297), the hashed uniform grid pair
-finder with the pair rules of s2PairQueryCallback (src/broad_phase.c:166-258),
-and the lane-batched match of the new pair table against the old one, which
-carries manifolds, impulses and GJK caches (src/contact.c:296-359).
+Port of the JAX package's `ops/broadphase.py`: fat-AABB hysteresis
+(reference: src/world.c:286-297), the hashed uniform grid pair finder with
+the pair rules of s2PairQueryCallback (src/broad_phase.c:166-258), for one
+world or per world over a batch, and the match of the new pair table against
+the old one, which carries manifolds, impulses and GJK caches
+(src/contact.c:296-359): per world (`match_contacts`) or on the lane step's
+shared world-0 layout (`match_contacts_lane`).
 
 Integer fields stay int32 tensors throughout: no field rides a float pack.
 Sorts whose keys can tie are stable, as `jnp.argsort` is.
@@ -51,14 +53,18 @@ class PairResult(NamedTuple):
 
 
 def _compact_keys(flat_key, C: int):
-    """The valid (!= INT32_MAX) keys, the first C of them in flat order,
-    sorted ascending and padded with INT32_MAX. Returns (keys [C], count)."""
+    """Per row of flat_key [W, N]: the valid (!= INT32_MAX) keys, the first C
+    of them in flat order, sorted ascending and padded with INT32_MAX.
+    Returns (keys [W, C], count [W])."""
+    W = flat_key.shape[0]
     vmask = flat_key != INT32_MAX
-    count = vmask.sum().to(I32)
-    kept = flat_key[vmask][:C]
-    keys = torch.full((C,), INT32_MAX, dtype=I32, device=flat_key.device)
-    keys[: kept.shape[0]] = kept
-    return torch.sort(keys).values, count
+    count = vmask.sum(dim=1).to(I32)
+    posn = torch.cumsum(vmask, dim=1) - 1
+    cells = torch.where(vmask & (posn < C), posn, C)
+    tbl = torch.zeros((W, C + 1), dtype=I32, device=flat_key.device)
+    tbl.scatter_(1, cells, torch.where(vmask, flat_key, 0))  # positions < C are unique
+    kept = torch.arange(C, device=flat_key.device) < torch.clamp(count, max=C)[:, None]
+    return torch.sort(torch.where(kept, tbl[:, :C], INT32_MAX), dim=1).values, count
 
 
 def jointed_body_keys(joints, config: SimConfig):
@@ -102,10 +108,20 @@ def _cell_hash(cx, cy):
 
 
 def find_pairs_grid(shapes: Shapes, body_type, jointed_keys, config: SimConfig) -> PairResult:
-    """Uniform-grid pair finding on one world: small shapes bin by fat-AABB
+    """Uniform-grid pair finding, per world: small shapes bin by fat-AABB
     center into cells sorted by cell hash; each shape tests the <=
     cell_capacity occupants of its half neighbourhood {self, E, NW, N, NE};
-    shapes larger than a cell form the big list, tested against everything."""
+    shapes larger than a cell form the big list, tested against everything.
+
+    Takes one world (shapes [S], body_type [B], jointed_keys [J]) or a batch
+    with a leading worlds dim on each, and returns pairs of the same rank.
+    Every per-world search and sort runs along the last dim, so worlds never
+    mix."""
+    if shapes.fat_aabb.dim() == 2:
+        one = shapes.map(lambda x: x[None])
+        out = find_pairs_grid(one, body_type[None], jointed_keys[None], config)
+        return PairResult(*(x[0] for x in out))
+    W = shapes.fat_aabb.shape[0]
     S = config.max_shapes
     M = config.cell_capacity
     G = config.max_big_shapes
@@ -113,85 +129,128 @@ def find_pairs_grid(shapes: Shapes, body_type, jointed_keys, config: SimConfig) 
     cell = torch.tensor(config.grid_cell, dtype=torch.float32, device=dev)
     fat = shapes.fat_aabb
     alive = shapes.alive
+    worlds = torch.arange(W, device=dev)[:, None, None]
 
-    w = fat[:, 2] - fat[:, 0]
-    h = fat[:, 3] - fat[:, 1]
+    w = fat[..., 2] - fat[..., 0]
+    h = fat[..., 3] - fat[..., 1]
     big = alive & ((w > cell) | (h > cell))
     small = alive & ~big
 
-    cx = torch.floor(0.5 * (fat[:, 0] + fat[:, 2]) / cell).to(I32)
-    cy = torch.floor(0.5 * (fat[:, 1] + fat[:, 3]) / cell).to(I32)
-    hashes = torch.where(small, _cell_hash(cx, cy), INT32_MAX)
+    cx = torch.floor(0.5 * (fat[..., 0] + fat[..., 2]) / cell).to(I32)
+    cy = torch.floor(0.5 * (fat[..., 1] + fat[..., 3]) / cell).to(I32)
+    hashes = torch.where(small, _cell_hash(cx, cy), INT32_MAX)              # [W,S]
 
-    order = torch.argsort(hashes, stable=True).to(I32)
-    sorted_hash = hashes[order]
+    order = torch.argsort(hashes, dim=1, stable=True).to(I32)
+    sorted_hash = torch.gather(hashes, 1, order.long())
 
     offsets = [(0, 0), (1, 0), (-1, 1), (0, 1), (1, 1)]
     NO = len(offsets)
-    nh_all = torch.stack([_cell_hash(cx + dx, cy + dy) for dx, dy in offsets])  # [NO,S]
-    lo = torch.searchsorted(sorted_hash, nh_all.reshape(-1), side="left").to(I32).reshape(NO, S)
+    nh_all = torch.stack([_cell_hash(cx + dx, cy + dy) for dx, dy in offsets], dim=1)  # [W,NO,S]
+    lo = torch.searchsorted(sorted_hash, nh_all.reshape(W, NO * S), side="left").to(I32).reshape(W, NO, S)
     lanes = torch.arange(M, dtype=I32, device=dev)
-    cand_rank = lo[:, :, None] + lanes                                    # [NO,S,M]
+    cand_rank = lo[..., None] + lanes                                      # [W,NO,S,M]
     pos = torch.clamp(cand_rank, max=S - 1)
     in_range = cand_rank < S
     # cell-capacity overflow: the (M+1)-th occupant of a looked-up bucket
     # still carries the neighbour hash
     ovf_rank = lo + M
-    ovf_hash = sorted_hash[torch.clamp(ovf_rank, max=S - 1)]
-    overflow = (small[None, :] & (ovf_rank < S) & (ovf_hash == nh_all)).any()
+    ovf_hash = torch.gather(sorted_hash, 1, torch.clamp(ovf_rank, max=S - 1).reshape(W, -1).long()).reshape(W, NO, S)
+    overflow = (small[:, None, :] & (ovf_rank < S) & (ovf_hash == nh_all)).flatten(1).any(dim=1)
 
-    grid_cand = order[pos.permute(1, 0, 2).reshape(S, NO * M)]          # [S, NO*M]
-    grid_valid = (in_range & small[None, :, None]).permute(1, 0, 2).reshape(S, NO * M)
+    grid_cand = torch.gather(order, 1, pos.permute(0, 2, 1, 3).reshape(W, -1).long()).reshape(W, S, NO * M)
+    grid_valid = (in_range & small[:, None, :, None]).permute(0, 2, 1, 3).reshape(W, S, NO * M)
 
     # big-shape list: slot r holds the r-th big shape (the last slot the
     # largest index once the list overflows), padded with 0
     idx = torch.arange(S, dtype=I32, device=dev)
-    nbig = big.sum()
-    big_cells = torch.where(big, torch.clamp(torch.cumsum(big, 0) - 1, max=G - 1), G)
-    big_idx = torch.zeros((G + 1,), dtype=I32, device=dev).scatter_reduce(
-        0, big_cells, idx, "amax", include_self=True
-    )[:G]
-    big_slot_valid = torch.arange(G, device=dev) < torch.clamp(nbig, max=G)
+    nbig = big.sum(dim=1)
+    big_cells = torch.where(big, torch.clamp(torch.cumsum(big, 1) - 1, max=G - 1), G)
+    big_idx = torch.zeros((W, G + 1), dtype=I32, device=dev).scatter_reduce(
+        1, big_cells, idx.expand(W, S), "amax", include_self=True
+    )[:, :G]
+    big_slot_valid = torch.arange(G, device=dev) < torch.clamp(nbig, max=G)[:, None]
     overflow = overflow | (nbig > G)
 
     K = NO * M + G
     a_idx = idx[:, None].expand(S, K)
-    b_idx = torch.cat([grid_cand, big_idx[None, :].expand(S, G)], dim=1)
-    valid = torch.cat([grid_valid, big_slot_valid[None, :] & alive[:, None]], dim=1)
+    b_idx = torch.cat([grid_cand, big_idx[:, None, :].expand(W, S, G)], dim=2)   # [W,S,K]
+    valid = torch.cat([grid_valid, big_slot_valid[:, None, :] & alive[:, :, None]], dim=2)
 
     # a candidate is real iff its own cell hash equals the looked-up
     # neighbour hash (dead and big shapes carry -1)
     own_hash = torch.where(small, hashes, -1)
-    hash_ok = own_hash[b_idx[:, : NO * M]] == nh_all.t()[:, :, None].expand(S, NO, M).reshape(S, NO * M)
+    nh_cols = nh_all.permute(0, 2, 1)[..., None].expand(W, S, NO, M).reshape(W, S, NO * M)
+    hash_ok = own_hash[worlds, b_idx[..., : NO * M]] == nh_cols
     # own-cell block: a<b visits each in-cell pair once
     half_ok = torch.cat(
-        [a_idx[:, :M] < b_idx[:, :M], torch.ones((S, (NO - 1) * M), dtype=torch.bool, device=dev)], dim=1
+        [a_idx[:, :M] < b_idx[..., :M], torch.ones((W, S, (NO - 1) * M), dtype=torch.bool, device=dev)], dim=2
     )
     # big-b columns: small-a keeps; big-big dedups by a<b
-    big_ok = small[:, None] | (a_idx[:, NO * M:] < b_idx[:, NO * M:])
-    valid &= torch.cat([hash_ok & half_ok, big_ok], dim=1)
+    big_ok = small[..., None] | (a_idx[:, NO * M:] < b_idx[..., NO * M:])
+    valid &= torch.cat([hash_ok & half_ok, big_ok], dim=2)
 
-    B = body_type.shape[0]
+    B = body_type.shape[1]
     fields = dict(
         fat=fat, body=shapes.body, group=shapes.filter_group, mask=shapes.filter_mask,
         cat=shapes.filter_category, alive=alive,
-        dyn=body_type[wrap_index(shapes.body, B)] == 2,
+        dyn=torch.gather(body_type, 1, wrap_index(shapes.body, B).long()) == 2,
     )
-    rows_a = {k: v[:, None] for k, v in fields.items()}
-    rows_b = {k: v[b_idx] for k, v in fields.items()}
-    valid &= _pair_rules(rows_a, rows_b, jointed_keys, config.max_bodies)
+    rows_a = {k: v[:, :, None] for k, v in fields.items()}
+    rows_b = {k: v[worlds, b_idx] for k, v in fields.items()}
+    valid &= _pair_rules(rows_a, rows_b, jointed_keys[:, None, None, :], config.max_bodies)
 
     pair_key = torch.where(valid, torch.minimum(a_idx, b_idx) * S + torch.maximum(a_idx, b_idx), INT32_MAX)
     C = config.max_contacts
-    top_key, count = _compact_keys(pair_key.reshape(-1), C)
+    top_key, count = _compact_keys(pair_key.reshape(W, -1), C)
     # drop duplicates (only under a neighbour-cell hash collision), keep sorted
-    dup = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev), top_key[1:] == top_key[:-1]])
-    top_key = torch.sort(torch.where(dup, INT32_MAX, top_key)).values
+    dup = torch.cat([torch.zeros((W, 1), dtype=torch.bool, device=dev), top_key[:, 1:] == top_key[:, :-1]], dim=1)
+    top_key = torch.sort(torch.where(dup, INT32_MAX, top_key), dim=1).values
     filled = top_key != INT32_MAX
     sa = torch.where(filled, top_key // S, 0).to(I32)
     sb = torch.where(filled, top_key % S, 0).to(I32)
     overflow = overflow | (count > C)
     return PairResult(sa, sb, top_key, filled, count, overflow)
+
+
+def match_contacts(old: Contacts, pairs: PairResult, shapes: Shapes) -> Contacts:
+    """Per-world persistent matching of a [W, C] batch (reference:
+    src/contact.c:156-229 creation, :296-359 persistence): each world's new
+    pair table searches its own old table; a pair that existed keeps its
+    manifold, impulses, GJK cache and color, a new one starts from zero
+    (color -1)."""
+    W, Cn = old.key.shape
+    new_key = pairs.key
+    pos = torch.clamp(torch.searchsorted(old.key, new_key, side="left"), max=Cn - 1)
+    worlds = torch.arange(W, device=new_key.device)[:, None]
+    found = (old.key[worlds, pos] == new_key) & (new_key != INT32_MAX) & old.alive[worlds, pos]
+
+    def carry(x, fill):
+        v = x[worlds, pos]
+        f = found.reshape(found.shape + (1,) * (v.dim() - 2))
+        return torch.where(f, v, fill)
+
+    sa, sb = pairs.shape_a, pairs.shape_b
+    friction = torch.sqrt(shapes.friction[worlds, sa] * shapes.friction[worlds, sb])            # contact.c:42-45
+    restitution = torch.maximum(shapes.restitution[worlds, sa], shapes.restitution[worlds, sb])  # :47-52
+    return Contacts(
+        key=new_key, shape_a=sa, shape_b=sb,
+        body_a=shapes.body[worlds, sa], body_b=shapes.body[worlds, sb],
+        friction=friction, restitution=restitution,
+        normal=carry(old.normal, 0.0),
+        anchor_a=carry(old.anchor_a, 0.0),
+        anchor_b=carry(old.anchor_b, 0.0),
+        separation=carry(old.separation, 0.0),
+        normal_impulse=carry(old.normal_impulse, 0.0),
+        tangent_impulse=carry(old.tangent_impulse, 0.0),
+        point_id=carry(old.point_id, 0),
+        persisted=carry(old.persisted, False),
+        point_count=carry(old.point_count, 0),
+        cache_count=carry(old.cache_count, 0),
+        cache_index_a=carry(old.cache_index_a, 0),
+        cache_index_b=carry(old.cache_index_b, 0),
+        color=carry(old.color, -1),
+        alive=pairs.valid,
+    )
 
 
 def match_contacts_lane(old: Contacts, pairs0: PairResult, shapes0: Shapes) -> Contacts:

@@ -1,8 +1,9 @@
-"""Persistent incremental coloring of the contact graph and the color
+"""Persistent incremental coloring of the constraint graphs and the color
 buckets of the lane solve.
 
 Port of the JAX package's `ops/coloring.py` (`assign_colors`,
-`build_body_map`, `build_color_buckets`). Colors fix the Gauss-Seidel order,
+`build_body_map`, `build_color_buckets`); the first two also run per world
+over a batch. Colors fix the Gauss-Seidel order,
 so every integer output here equals the JAX function's. Scatters reduce
 with max or add over int32, whose result does not depend on the order of
 the updates.
@@ -23,11 +24,15 @@ def _hash_priority(idx):
 
 
 def _scatter_max(target, idx, vals):
-    return target.scatter_reduce(0, idx.long(), vals, "amax", include_self=True)
+    return target.scatter_reduce(-1, idx.long(), vals, "amax", include_self=True)
 
 
 def _scatter_add(target, idx, vals):
-    return target.index_add(0, idx.long(), vals)
+    return target.scatter_add(-1, idx.long(), vals)
+
+
+def _gather(table, idx):
+    return torch.gather(table, -1, idx.long())
 
 
 def assign_colors(carried, body_a, body_b, active, dynamic_mask, num_bodies: int,
@@ -36,15 +41,26 @@ def assign_colors(carried, body_a, body_b, active, dynamic_mask, num_bodies: int
     constraints with first-fit rounds under hashed priorities; with
     `bucket_cap` > 0 a color whose population fills its bucket takes no new
     constraints. Returns (color i32 [N] with -1 for uncolored, overflow i32
-    count). Requires max_colors <= 30 (an int32 bitmask of used colors)."""
+    count). Requires max_colors <= 30 (an int32 bitmask of used colors).
+
+    Takes one graph or a batch of graphs with a leading worlds dim on every
+    argument (then the overflow is per world); rounds run while any world
+    has an uncolored constraint, and a round leaves a world that has none
+    as it was, as the JAX package's vmapped while-loop does."""
     assert max_colors <= 30, "assign_colors packs colors into an int32 bitmask"
-    N = body_a.shape[0]
+    if body_a.dim() == 1:
+        color, overflow = assign_colors(
+            carried[None], body_a[None], body_b[None], active[None], dynamic_mask[None],
+            num_bodies, max_colors, rounds, bucket_cap,
+        )
+        return color[0], overflow[0]
+    W, N = body_a.shape
     dev = body_a.device
     idx = torch.arange(N, dtype=I32, device=dev)
-    pri = _hash_priority(idx)
+    pri = _hash_priority(idx).expand(W, N)
 
-    dyn_a = dynamic_mask[body_a]
-    dyn_b = dynamic_mask[body_b]
+    dyn_a = _gather(dynamic_mask, body_a)
+    dyn_b = _gather(dynamic_mask, body_b)
     slot_a = torch.where(dyn_a, body_a, num_bodies)
     slot_b = torch.where(dyn_b, body_b, num_bodies)
 
@@ -52,7 +68,7 @@ def assign_colors(carried, body_a, body_b, active, dynamic_mask, num_bodies: int
     color = torch.where(active & (carried >= 0) & (carried < max_colors), carried, -1)
     full_mask = (1 << max_colors) - 1
     tbl_size = (num_bodies + 1) * max_colors
-    slots_ab = torch.cat([slot_a, slot_b])
+    slots_ab = torch.cat([slot_a, slot_b], dim=1)
 
     def validate(color):
         """Drop to -1 any colored constraint that does not own its (body,
@@ -60,60 +76,66 @@ def assign_colors(carried, body_a, body_b, active, dynamic_mask, num_bodies: int
         colored = active & (color >= 0)
         c = torch.clamp(color, min=0)
         claim = torch.where(colored, pri, -1)
-        cells = torch.where(torch.cat([colored, colored]), slots_ab * max_colors + torch.cat([c, c]), tbl_size)
-        tbl = _scatter_max(torch.full((tbl_size + 1,), -1, dtype=I32, device=dev), cells, torch.cat([claim, claim]))
-        got = tbl[cells]
-        own = (~dyn_a | (got[:N] == pri)) & (~dyn_b | (got[N:] == pri))
+        cells = torch.where(
+            torch.cat([colored, colored], dim=1), slots_ab * max_colors + torch.cat([c, c], dim=1), tbl_size
+        )
+        tbl = _scatter_max(
+            torch.full((W, tbl_size + 1), -1, dtype=I32, device=dev), cells, torch.cat([claim, claim], dim=1)
+        )
+        got = _gather(tbl, cells)
+        own = (~dyn_a | (got[:, :N] == pri)) & (~dyn_b | (got[:, N:] == pri))
         return torch.where(colored & ~own, -1, color)
 
     color = validate(color)
     bits = 1 << torch.arange(max_colors, dtype=I32, device=dev)
     r = 0
     # first-fit rounds until nothing is uncolored (zero rounds in a steady
-    # state where every contact persists)
+    # state where every constraint persists)
     while r < rounds and bool((active & (color < 0)).any()):
         ok = active & (color >= 0)
         # used-color bitmask per body; surviving colors are distinct per body,
         # so the add is a bitwise or
         bit = torch.where(ok, 1 << torch.clamp(color, min=0), 0).to(I32)
-        ok2 = torch.cat([ok, ok])
+        ok2 = torch.cat([ok, ok], dim=1)
         used = _scatter_add(
-            torch.zeros((num_bodies + 1,), dtype=I32, device=dev),
-            torch.where(ok2, slots_ab, num_bodies), torch.cat([bit, bit]),
+            torch.zeros((W, num_bodies + 1), dtype=I32, device=dev),
+            torch.where(ok2, slots_ab, num_bodies), torch.cat([bit, bit], dim=1),
         )
-        rows = used[slots_ab]
-        free = ~(torch.where(dyn_a, rows[:N], 0) | torch.where(dyn_b, rows[N:], 0)) & full_mask
+        rows = _gather(used, slots_ab)
+        free = ~(torch.where(dyn_a, rows[:, :N], 0) | torch.where(dyn_b, rows[:, N:], 0)) & full_mask
         if bucket_cap > 0:
             cnt = _scatter_add(
-                torch.zeros((max_colors + 1,), dtype=I32, device=dev),
-                torch.where(ok, color, max_colors), torch.ones((N,), dtype=I32, device=dev),
+                torch.zeros((W, max_colors + 1), dtype=I32, device=dev),
+                torch.where(ok, color, max_colors), torch.ones((W, N), dtype=I32, device=dev),
             )
-            full_colors = torch.where(cnt[:max_colors] >= bucket_cap, bits, 0).sum().to(I32)
-            free = free & ~full_colors
+            full_colors = torch.where(cnt[:, :max_colors] >= bucket_cap, bits, 0).sum(dim=1).to(I32)
+            free = free & ~full_colors[:, None]
         lowbit = free & -free
         # index of the lowest set bit (exact for powers of two)
         newc = (torch.frexp(torch.clamp(lowbit, min=1).to(torch.float32)).exponent - 1).to(I32)
         propose = active & (color < 0) & (free != 0)
         color = validate(torch.where(propose, newc, color))
         r += 1
-    overflow = (active & (color < 0)).sum().to(I32)
+    overflow = (active & (color < 0)).sum(dim=1).to(I32)
     return color, overflow
 
 
 def build_body_map(body_a, body_b, color, active, write_a, write_b, num_bodies: int, max_colors: int):
-    """slot[b, k] = index of the color-k constraint that writes body b, or -1
-    (conflicting writers resolve to the largest index)."""
-    N = body_a.shape[0]
-    idx = torch.arange(N, dtype=I32, device=body_a.device)
+    """slot[..., b, k] = index of the color-k constraint that writes body b,
+    or -1 (conflicting writers resolve to the largest index). Arguments [N]
+    or [W, N]."""
+    N = body_a.shape[-1]
+    lead = body_a.shape[:-1]
+    idx = torch.arange(N, dtype=I32, device=body_a.device).expand(lead + (N,))
     c = torch.clamp(color, 0, max_colors - 1)
     sink = num_bodies * max_colors
     cell_a = torch.where(write_a & active, body_a * max_colors + c, sink)
     cell_b = torch.where(write_b & active, body_b * max_colors + c, sink)
     slot = _scatter_max(
-        torch.full((num_bodies * max_colors + 1,), -1, dtype=I32, device=body_a.device),
-        torch.cat([cell_a, cell_b]), torch.cat([idx, idx]),
+        torch.full(lead + (num_bodies * max_colors + 1,), -1, dtype=I32, device=body_a.device),
+        torch.cat([cell_a, cell_b], dim=-1), torch.cat([idx, idx], dim=-1),
     )
-    return slot[: num_bodies * max_colors].reshape(num_bodies, max_colors)
+    return slot[..., : num_bodies * max_colors].reshape(lead + (num_bodies, max_colors))
 
 
 def build_color_buckets(color, active, max_colors: int, cap: int):

@@ -7,6 +7,8 @@ operation order, so results agree to the last bit on the same device.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -42,3 +44,51 @@ def rotate(q, v):
     x = q[..., 1] * v[..., 0] - q[..., 0] * v[..., 1]
     y = q[..., 0] * v[..., 0] + q[..., 1] * v[..., 1]
     return torch.stack([x, y], dim=-1)
+
+
+def atan2(y, x):
+    """The JAX package's branch-free atan2 (`ops/math2d.py:atan2`): octant
+    reduction to |z| <= tan(pi/8), then the Cephes atanf polynomial, from
+    mul/add/select only, so the fused solve kernel (csrc/fused_solve.cu)
+    computes it with the same operations. Not `torch.atan2`: the joints'
+    angles must round as the reference's do. atan2(-0.0, x<0) is +pi, as
+    there."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    lo = torch.minimum(ax, ay)
+    a = lo / torch.where(hi > 0.0, hi, 1.0)
+    big = a > 0.4142135623730950
+    z = torch.where(big, (a - 1.0) / (a + 1.0), a)
+    z2 = z * z
+    p = (((8.05374449538e-2 * z2 - 1.38776856032e-1) * z2 + 1.99777106478e-1)
+         * z2 - 3.33329491874e-1) * z2 * z + z
+    t = torch.where(big, 0.25 * math.pi + p, p)
+    t = torch.where(ay > ax, 0.5 * math.pi - t, t)
+    t = torch.where(x < 0.0, math.pi - t, t)
+    return torch.where(y < 0.0, -t, t)
+
+
+def rot_angle(q):
+    return atan2(q[..., 0], q[..., 1])
+
+
+def mul_rot(b, a):
+    """b*a, angle addition (reference: math.h:291-301)."""
+    s = b[..., 0] * a[..., 1] + b[..., 1] * a[..., 0]
+    c = b[..., 1] * a[..., 1] - b[..., 0] * a[..., 0]
+    return torch.stack([s, c], dim=-1)
+
+
+def inv_mul_rot(b, a):
+    """inv(b)*a, angle subtraction (reference: math.h:307-317)."""
+    s = b[..., 1] * a[..., 0] - b[..., 0] * a[..., 1]
+    c = b[..., 1] * a[..., 1] + b[..., 0] * a[..., 0]
+    return torch.stack([s, c], dim=-1)
+
+
+def relative_angle(b, a):
+    """Angle of rot b relative to rot a (reference: math.h:320-327)."""
+    s = b[..., 0] * a[..., 1] - b[..., 1] * a[..., 0]
+    c = b[..., 1] * a[..., 1] + b[..., 0] * a[..., 0]
+    return atan2(s, c)

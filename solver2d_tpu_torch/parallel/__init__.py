@@ -1,3 +1,3 @@
-from .batch import replicate
+from .batch import batched_step, replicate
 
-__all__ = ["replicate"]
+__all__ = ["batched_step", "replicate"]

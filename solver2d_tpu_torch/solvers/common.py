@@ -1,8 +1,10 @@
-"""Shared solver pieces: integration, soft contact preparation, body maps.
+"""Shared solver pieces: integration, packed body state, soft contact
+preparation, impulse store, body maps.
 
-Port of the JAX package's `solvers/common.py` for the lane solve. Functions
-broadcast over leading dims: the lane solve calls them on [bodies, worlds]
-and [bucket positions, worlds] tensors. Scalars that depend on the step (h,
+Port of the JAX package's `solvers/common.py` for the soft solvers.
+Functions broadcast over leading dims: the lane solve calls them on
+[bodies, worlds] and [bucket positions, worlds] tensors, the per-world step
+on [worlds, bodies] and [worlds, contacts]. Scalars that depend on the step (h,
 inv_h, hertz) are 0-dim float32 tensors, formed as the JAX package forms
 them.
 """
@@ -56,6 +58,17 @@ def finalize_positions(bodies: Bodies, delta_pos, rot, v, w) -> Bodies:
         rot=rot, rot0=rot, v=v, w=w,
         force=torch.zeros_like(bodies.force), torque=torch.zeros_like(bodies.torque),
     )
+
+
+def pack_body_state(v, w, dp, rot):
+    """The solver's body state, one row a body: [vx, vy, w, dpx, dpy,
+    rot_s, rot_c, pad]."""
+    return torch.cat([v, w[..., None], dp, rot, torch.zeros_like(w[..., None])], dim=-1)
+
+
+def unpack_body_state(bs):
+    """(v [..., 2], w, delta_pos [..., 2], rot [..., 2]) of packed rows."""
+    return bs[..., 0:2], bs[..., 2], bs[..., 3:5], bs[..., 5:7]
 
 
 class ContactCons(NamedTuple):
@@ -146,6 +159,16 @@ def prepare_contacts(contacts, ra, rb, *, h, hertz, warm_start: bool):
     return cons, n_imp, t_imp
 
 
+def store_impulses(contacts, cons: ContactCons, n_imp, t_imp):
+    """Keep the live points' impulses for the next step's warm start
+    (reference: src/solve_common.c:396-410)."""
+    return dataclasses.replace(
+        contacts,
+        normal_impulse=torch.where(cons.pmask, n_imp, contacts.normal_impulse),
+        tangent_impulse=torch.where(cons.pmask, t_imp, contacts.tangent_impulse),
+    )
+
+
 class BodyMap(NamedTuple):
     """slot [B, K]: the color-k constraint writing body b (-1 none);
     winner [N]: the constraint owns its table entries."""
@@ -154,15 +177,21 @@ class BodyMap(NamedTuple):
     winner: torch.Tensor
 
 
-def make_body_map(body_a, body_b, color, active, dyn_mask, num_bodies: int, n_colors: int) -> BodyMap:
-    N = body_a.shape[0]
+def make_body_map(body_a, body_b, color, active, dyn_mask, num_bodies: int, n_colors: int,
+                  write_a_extra=None) -> BodyMap:
+    """The body map of one constraint set ([N], dyn_mask [B]) or of one per
+    world ([W, N], dyn_mask [W, B]). `write_a_extra` masks the A endpoints
+    that are written (mouse joints never write body A)."""
+    N = body_a.shape[-1]
     idx = torch.arange(N, dtype=torch.int32, device=body_a.device)
-    write_a = dyn_mask[body_a]
-    write_b = dyn_mask[body_b]
+    write_a = torch.gather(dyn_mask, -1, body_a.long())
+    write_b = torch.gather(dyn_mask, -1, body_b.long())
+    if write_a_extra is not None:
+        write_a = write_a & write_a_extra
     slot = build_body_map(body_a, body_b, color, active, write_a, write_b, num_bodies, n_colors)
     c = torch.clamp(color, 0, n_colors - 1)
-    cells = torch.cat([body_a, body_b]) * n_colors + torch.cat([c, c])
-    got = slot.reshape(-1)[cells]
-    own_a = ~write_a | (got[:N] == idx)
-    own_b = ~write_b | (got[N:] == idx)
+    cells = torch.cat([body_a, body_b], dim=-1) * n_colors + torch.cat([c, c], dim=-1)
+    got = torch.gather(slot.flatten(-2), -1, cells.long())
+    own_a = ~write_a | (got[..., :N] == idx)
+    own_b = ~write_b | (got[..., N:] == idx)
     return BodyMap(slot=slot, winner=own_a & own_b)

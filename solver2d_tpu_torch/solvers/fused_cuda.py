@@ -1,0 +1,97 @@
+"""K1: the fused soft solve as a CUDA kernel (`csrc/fused_solve.cu`).
+
+`fused_solve` runs the kernel on CUDA tensors and the plain twin
+(`fused_solve.fused_solve_plain`) on CPU tensors; it never falls back from
+one to the other. Replaces the TPU kernel
+`solver2d_tpu/solvers/pallas_solver.py:_kernel` (its TGS_Soft script).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..world import K1_BODY_BYTES, K1_SMEM_BYTES
+from .fused_solve import N_CONS_FIELDS, N_JOINT_FIELDS, FusedInputs, fused_solve_plain
+
+_SOURCE = "fused_solve.cu"
+_lib = None
+
+
+def load():
+    """Build (at first use) and load the kernel's library."""
+    global _lib
+    if _lib is None:
+        from .._nvcc import build
+
+        lib = ctypes.CDLL(build([_SOURCE])[_SOURCE])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.s2t_fused_solve.argtypes = [p] * 20 + [i] * 9 + [p]
+        lib.s2t_fused_solve.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check(t, name, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def fused_solve(x: FusedInputs, *, substeps: int, relax: bool, warm_start: bool,
+                n_colors: int, n_joint_colors: int):
+    """The TGS_Soft solve of W worlds (layouts in `fused_solve.FusedInputs`).
+    Returns (bs [W, B, 8], n_imp [W, C, 2], t_imp [W, C, 2], jimp [W, J, 5])."""
+    static = dict(substeps=substeps, relax=relax, warm_start=warm_start,
+                  n_colors=n_colors, n_joint_colors=n_joint_colors)
+    dev = x.bs.device
+    if dev.type == "cpu":
+        return fused_solve_plain(x, **static)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_solve: unsupported device {dev}")
+    W, B = x.bs.shape[:2]
+    C, J = x.cint.shape[1], x.jint.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    for name, dtype, shape in (
+        ("body_const", f32, (W, B, 8)), ("bs", f32, (W, B, 8)),
+        ("cfields", f32, (W, C, N_CONS_FIELDS)), ("cint", i32, (W, C, 4)),
+        ("n_imp", f32, (W, C, 2)), ("t_imp", f32, (W, C, 2)),
+        ("jfields", f32, (W, J, N_JOINT_FIELDS)), ("jint", i32, (W, J, 4)), ("jimp", f32, (W, J, 5)),
+        ("c_off", i32, (W, B + 1)), ("c_ent", i32, (W, 2 * C)),
+        ("j_off", i32, (W, B + 1)), ("j_ent", i32, (W, 2 * J)), ("scal", f32, (2,)),
+    ):
+        _check(getattr(x, name), name, dtype, shape, dev)
+    if B * K1_BODY_BYTES > K1_SMEM_BYTES:
+        raise ValueError(f"fused_solve: {B} bodies exceed the kernel's shared memory")
+    if max(n_colors, n_joint_colors) > 30:
+        raise ValueError("fused_solve: at most 30 colors")
+    lib = load()
+    bs = torch.empty_like(x.bs)
+    n_imp = torch.empty_like(x.n_imp)
+    t_imp = torch.empty_like(x.t_imp)
+    jimp = torch.empty_like(x.jimp)
+    cdelta = torch.empty((W, 2 * C, 3), dtype=f32, device=dev)
+    jdelta = torch.empty((W, 2 * J, 3), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.s2t_fused_solve(
+        x.body_const.data_ptr(), x.bs.data_ptr(), x.cfields.data_ptr(), x.cint.data_ptr(),
+        x.n_imp.data_ptr(), x.t_imp.data_ptr(), x.jfields.data_ptr(), x.jint.data_ptr(),
+        x.jimp.data_ptr(), x.c_off.data_ptr(), x.c_ent.data_ptr(), x.j_off.data_ptr(),
+        x.j_ent.data_ptr(), x.scal.data_ptr(),
+        bs.data_ptr(), n_imp.data_ptr(), t_imp.data_ptr(), jimp.data_ptr(),
+        cdelta.data_ptr(), jdelta.data_ptr(),
+        W, B, C, J, n_colors, n_joint_colors, substeps, int(relax), int(warm_start), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K1 fused solve launch failed: cudaError {rc}")
+    fused_solve.launches += 1
+    return bs, n_imp, t_imp, jimp
+
+
+fused_solve.launches = 0

@@ -29,7 +29,9 @@ from .common import (
     integrate_positions,
     integrate_velocities,
     make_body_map,
+    pack_body_state,
     prepare_contacts,
+    unpack_body_state,
 )
 
 I32 = torch.int32
@@ -120,14 +122,6 @@ def _permute_contacts_lane(contacts, struct: LaneStructure):
     )
 
 
-def _unpack(rows):
-    return rows[..., 0:2], rows[..., 2], rows[..., 3:5], rows[..., 5:7]
-
-
-def _pack(v, w, dp, rot):
-    return torch.cat([v, w[..., None], dp, rot, torch.zeros_like(w[..., None])], dim=-1)
-
-
 def _scatter_plan(idx, n_rows: int):
     """The plan of an ordered scatter-add into n_rows rows: table[r, d] is
     the d-th entry of idx that names row r, in the order of idx (the
@@ -194,12 +188,12 @@ def _lane_gs_sweep(bs, n_imp, t_imp, cons, struct: LaneStructure, cfg: SimConfig
         cons_k = cons.rows(sl)
         n_k, t_k = n_imp[sl], t_imp[sl]
         rows = bs[torch.cat([struct.ia[sl], struct.ib[sl]])]
-        vA, wA, dcA, qA = _unpack(rows[:cap])
-        vB, wB, dcB, qB = _unpack(rows[cap:])
+        vA, wA, dcA, qA = unpack_body_state(rows[:cap])
+        vB, wB, dcB, qB = unpack_body_state(rows[cap:])
         vA2, wA2, vB2, wB2, n2, t2 = ck.solve_contact_core(
             cons_k, vA, wA, vB, wB, qA, qB, dcA, dcB, n_k, t_k, mode, inv_h, use_bias
         )
-        pool = torch.cat([_pack(vA2, wA2, dcA, qA), _pack(vB2, wB2, dcB, qB)], dim=-1)  # [cap, W, 16]
+        pool = torch.cat([pack_body_state(vA2, wA2, dcA, qA), pack_body_state(vB2, wB2, dcB, qB)], dim=-1)  # [cap, W, 16]
         slot_g = struct.slot[:, k]
         got = pool[torch.where(slot_g >= 0, slot_g - k * cap, 0)]                      # [B, W, 16]
         sel = torch.where(struct.is_a[:, k, None, None], got[..., :8], got[..., 8:])
@@ -249,7 +243,7 @@ def lane_solve(bodies, contacts, struct: LaneStructure, gravity, dt, cfg: SimCon
         raise ValueError(f"lane_solve runs TGS_SOFT and PGS_SOFT, not {cfg.solver.name}")
 
     lc = bodies.map(_t2)  # per-body constants, [B, W]
-    bs = _pack(lc.v, lc.w, lc.delta_pos, lc.rot)  # [B, W, 8]
+    bs = pack_body_state(lc.v, lc.w, lc.delta_pos, lc.rot)  # [B, W, 8]
     # warm-start deltas go to the dynamic endpoints of real bucket entries
     # (the deltas of the others are zeros)
     B = bodies.type.shape[1]

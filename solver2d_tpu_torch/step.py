@@ -1,8 +1,9 @@
-"""One step of a lockstep world batch, lane-batched.
+"""One step of a world batch: the lane-batched step and the per-world step.
 
-Port of the lane branch of the JAX package's `step.step_batch`
-(reference pipeline: src/world.c:120-306):
+Ports of the JAX package's `step.py` (reference pipeline:
+src/world.c:120-306). Both run on a batch with a leading worlds dim.
 
+`step_batch`, the lane branch of the JAX `step_batch`, for a lockstep batch:
 1. grid broadphase on world 0, then the persistent contact match whose slot
    layout every world shares (`ops/broadphase.py`);
 2. the narrowphase of every (world, contact) through K2
@@ -11,10 +12,17 @@ Port of the lane branch of the JAX package's `step.step_batch`
    (`solvers/lane_solve.build_lane_structure`);
 4. the soft contact solve with worlds in lanes (`solvers/lane_solve`);
 5. AABB and fat-AABB update and diagnostics (`_post_solve`).
-
 Two behaviours of the JAX lane path are reproduced as they are: the
 per-world `mismatch` adds on top of world 0's shared overflow in
 `color_overflow`, and world 0's gravity and shape geometry serve every world.
+
+`step`, the JAX `step` with the fused solver (`use_pallas_solver=True`,
+incremental coloring, no buckets) vmapped over worlds (`parallel.batch`):
+each world has its own pairs (`find_pairs_grid`, `match_contacts`), its
+narrowphase through K2 with the worlds flattened into one lane batch
+(`update_manifolds`), its own contact and joint colors and body maps, and
+the TGS_Soft solve of contacts and soft revolute and mouse joints in one
+launch of K1 (`solvers/loops.solve_prepared`).
 """
 
 from __future__ import annotations
@@ -25,11 +33,15 @@ from typing import NamedTuple
 import torch
 
 from .config import SPECULATIVE_DISTANCE, SimConfig
-from .ops import broadphase
+from .ops import broadphase, coloring
 from .ops.geometry import compute_aabbs
 from .ops.narrow_cuda import collide
+from .solvers.common import ContactCons, make_body_map
+from .solvers.fused_solve import FusedInputs
+from .solvers.joints import JointCons
 from .solvers.lane_solve import build_lane_structure, lane_solve
-from .state import Contacts, Diagnostics, State
+from .solvers.loops import prepare_fused, solve_prepared
+from .state import Contacts, Diagnostics, Joints, State
 
 I32 = torch.int32
 
@@ -83,36 +95,23 @@ def _apply_manifolds(contacts: Contacts, out: ManifoldOut) -> Contacts:
     )
 
 
-def narrow_inputs(batch: State, contacts: Contacts):
-    """K2's inputs for a lockstep batch: world 0's shape table [S, 34]
-    (vx, vy, nx, ny rows, count, radius), the shared shape indices, and
-    each world's endpoint poses [W, 4, C] and GJK caches [W, 7, C]."""
-    s0 = batch.shapes.map(lambda x: x[0])
-    geom = torch.cat(
+def _geom_table(shapes):
+    """The shape table of K2 [..., S, 34]: vx, vy, nx, ny rows, count, radius."""
+    return torch.cat(
         [
-            s0.verts[..., 0], s0.verts[..., 1], s0.normals[..., 0], s0.normals[..., 1],
-            s0.count[:, None].to(torch.float32), s0.radius[:, None],
+            shapes.verts[..., 0], shapes.verts[..., 1], shapes.normals[..., 0], shapes.normals[..., 1],
+            shapes.count[..., None].to(torch.float32), shapes.radius[..., None],
         ],
         dim=-1,
-    ).contiguous()
-    pose = torch.cat([batch.bodies.origin, batch.bodies.rot], dim=-1)  # [W, B, 4]
-    pa = pose[:, contacts.body_a[0]].transpose(1, 2).contiguous()
-    pb = pose[:, contacts.body_b[0]].transpose(1, 2).contiguous()
-    cache = torch.cat(
-        [contacts.cache_count[:, None], contacts.cache_index_a.transpose(1, 2),
-         contacts.cache_index_b.transpose(1, 2)],
-        dim=1,
-    ).contiguous()
-    return geom, contacts.shape_a[0].contiguous(), contacts.shape_b[0].contiguous(), pa, pb, cache
+    )
 
 
-def update_manifolds_lane(batch: State, contacts: Contacts, config: SimConfig) -> Contacts:
-    """The narrowphase of a lockstep batch through K2, then id matching."""
-    fout, iout, cout = collide(*narrow_inputs(batch, contacts), config.gjk_iters)
+def _manifold_out(fout, iout, cout) -> ManifoldOut:
+    """K2's outputs [W, 12|3|7, C] as per-contact fields [W, C, ...]."""
     f = fout.transpose(1, 2)  # [W, C, 12]
     i = iout.transpose(1, 2)
     c = cout.transpose(1, 2)
-    out = ManifoldOut(
+    return ManifoldOut(
         normal=f[..., 0:2],
         anchor_a=f[..., 2:6].reshape(f.shape[:2] + (2, 2)),
         anchor_b=f[..., 6:10].reshape(f.shape[:2] + (2, 2)),
@@ -123,11 +122,72 @@ def update_manifolds_lane(batch: State, contacts: Contacts, config: SimConfig) -
         cache_ia=c[..., 1:4],
         cache_ib=c[..., 4:7],
     )
+
+
+def _cache(contacts: Contacts):
+    return torch.cat(
+        [contacts.cache_count[:, None], contacts.cache_index_a.transpose(1, 2),
+         contacts.cache_index_b.transpose(1, 2)],
+        dim=1,
+    ).contiguous()
+
+
+def narrow_inputs(batch: State, contacts: Contacts):
+    """K2's inputs for a lockstep batch: world 0's shape table [S, 34],
+    the shared shape indices, and each world's endpoint poses [W, 4, C] and
+    GJK caches [W, 7, C]."""
+    geom = _geom_table(batch.shapes.map(lambda x: x[0])).contiguous()
+    pose = torch.cat([batch.bodies.origin, batch.bodies.rot], dim=-1)  # [W, B, 4]
+    pa = pose[:, contacts.body_a[0]].transpose(1, 2).contiguous()
+    pb = pose[:, contacts.body_b[0]].transpose(1, 2).contiguous()
+    return geom, contacts.shape_a[0].contiguous(), contacts.shape_b[0].contiguous(), pa, pb, _cache(contacts)
+
+
+def update_manifolds_lane(batch: State, contacts: Contacts, config: SimConfig) -> Contacts:
+    """The narrowphase of a lockstep batch through K2, then id matching."""
+    out = _manifold_out(*collide(*narrow_inputs(batch, contacts), config.gjk_iters))
     return _apply_manifolds(contacts, out)
 
 
-def _post_solve(batch: State, new_bodies, contacts, pairs0, diverged, sbt0, touching,
-                c_overflow) -> State:
+def world_narrow_inputs(batch: State, contacts: Contacts):
+    """K2's inputs for W worlds with their own shapes and pairs, flattened
+    into one lane batch of W*C contacts: the shape tables stacked [W*S, 34],
+    shape indices offset by w*S, poses [1, 4, W*C], caches [1, 7, W*C]."""
+    W, S = batch.shapes.body.shape
+    geom = _geom_table(batch.shapes).reshape(W * S, 34).contiguous()
+    off = (torch.arange(W, dtype=torch.int32, device=geom.device) * S)[:, None]
+    worlds = torch.arange(W, device=geom.device)[:, None]
+    pose = torch.cat([batch.bodies.origin, batch.bodies.rot], dim=-1)  # [W, B, 4]
+
+    def lanes(x):  # [W, C, k] -> [1, k, W*C]
+        return x.reshape(-1, x.shape[-1]).t()[None].contiguous()
+
+    return (
+        geom, (contacts.shape_a + off).reshape(-1).contiguous(), (contacts.shape_b + off).reshape(-1).contiguous(),
+        lanes(pose[worlds, contacts.body_a]), lanes(pose[worlds, contacts.body_b]),
+        lanes(_cache(contacts).transpose(1, 2)),
+    )
+
+
+def update_manifolds(batch: State, contacts: Contacts, gjk_iters: int, impl: str = "lanes") -> Contacts:
+    """The narrowphase of every world's own contacts through K2, then id
+    matching (reference: src/contact.c:296-359). `impl` "lanes" and
+    "pallas" both run K2; the per-pair "xla" narrowphase is not ported."""
+    if impl not in ("lanes", "pallas"):
+        raise NotImplementedError(
+            f"narrowphase {impl!r}: only the lane-major narrowphase (K2) is ported (ROADMAP item 10)"
+        )
+    W, C = contacts.key.shape
+    fout, iout, cout = collide(*world_narrow_inputs(batch, contacts), gjk_iters)
+
+    def worlds(x):  # [1, k, W*C] -> [W, k, C]
+        return x[0].reshape(x.shape[1], W, C).transpose(0, 1)
+
+    return _apply_manifolds(contacts, _manifold_out(worlds(fout), worlds(iout), worlds(cout)))
+
+
+def _post_solve(batch: State, new_bodies, contacts, joints, pair_count, pair_overflow, sbt, touching,
+                color_overflow) -> State:
     """AABB + fat-AABB hysteresis update, diagnostics, the new State."""
     shapes = batch.shapes
     W, B = new_bodies.type.shape
@@ -136,7 +196,7 @@ def _post_solve(batch: State, new_bodies, contacts, pairs0, diverged, sbt0, touc
     shape_pose = new_pose[worlds, broadphase.wrap_index(shapes.body, B)]
     aabbs = compute_aabbs(shapes.verts, shapes.radius, shape_pose[..., 0:2], shape_pose[..., 2:4])
     aabbs = aabbs + torch.tensor([-1.0, -1.0, 1.0, 1.0], device=aabbs.device) * SPECULATIVE_DISTANCE
-    fat = broadphase.update_fat_aabbs(shapes.fat_aabb, aabbs, sbt0)
+    fat = broadphase.update_fat_aabbs(shapes.fat_aabb, aabbs, sbt)
 
     pts = torch.arange(2, device=touching.device)
     pen = torch.where(
@@ -144,9 +204,9 @@ def _post_solve(batch: State, new_bodies, contacts, pairs0, diverged, sbt0, touc
     )
     diag = Diagnostics(
         contact_count=touching.sum(dim=1).to(I32),
-        pair_count=pairs0.count.expand(W).to(I32),
-        pair_overflow=pairs0.overflow | diverged,
-        color_overflow=c_overflow.to(I32),
+        pair_count=pair_count.to(I32),
+        pair_overflow=pair_overflow,
+        color_overflow=color_overflow.to(I32),
         max_penetration=pen.flatten(1).amax(dim=1),
         step_id=batch.diag.step_id + 1,
     )
@@ -154,7 +214,7 @@ def _post_solve(batch: State, new_bodies, contacts, pairs0, diverged, sbt0, touc
         bodies=new_bodies,
         shapes=dataclasses.replace(shapes, aabb=aabbs, fat_aabb=fat),
         contacts=contacts,
-        joints=batch.joints,
+        joints=joints,
         gravity=batch.gravity,
         diag=diag,
     )
@@ -165,6 +225,7 @@ def step_batch(batch: State, dt: float, config: SimConfig) -> State:
     solve structure come from world 0 and are shared; worlds whose fat AABBs
     differ from world 0's get `diag.pair_overflow` raised. Runs on the
     batch's device."""
+    assert config.lane_solve, "step_batch is the lane-batched step (freeze with lane_solve=True)"
     W = batch.bodies.type.shape[0]
     bodies0 = batch.bodies.map(lambda x: x[0])
     shapes0 = batch.shapes.map(lambda x: x[0])
@@ -192,6 +253,83 @@ def step_batch(batch: State, dt: float, config: SimConfig) -> State:
     )
     touching = contacts.alive & (contacts.point_count > 0)
     return _post_solve(
-        batch, new_bodies, contacts, pairs0, diverged, sbt0[None].expand(W, -1), touching,
-        struct.shared_overflow + mismatch,
+        batch, new_bodies, contacts, batch.joints, pairs0.count.expand(W), pairs0.overflow | diverged,
+        sbt0[None].expand(W, -1), touching, struct.shared_overflow + mismatch,
+    )
+
+
+def _pre_solve(batch: State, config: SimConfig):
+    """Per world: pair update from last step's fat AABBs, persistent
+    matching, narrowphase. Returns (contacts, pairs, shape body types)."""
+    shapes, bodies = batch.shapes, batch.bodies
+    B = bodies.type.shape[1]
+    sbt = torch.where(shapes.alive, torch.gather(bodies.type, 1, broadphase.wrap_index(shapes.body, B).long()), 0)
+    jointed = broadphase.jointed_body_keys(batch.joints, config)
+    pairs = broadphase.find_pairs_grid(shapes, bodies.type, jointed, config)
+    contacts = broadphase.match_contacts(batch.contacts, pairs, shapes)
+    contacts = update_manifolds(batch, contacts, config.gjk_iters)
+    return contacts, pairs, sbt
+
+
+def _color(batch: State, contacts: Contacts, config: SimConfig):
+    """Per world: incremental contact and joint colors and their body maps.
+    Returns (contacts, joints, (ccolor, cmap, jcolor, jmap), overflow [W])."""
+    bodies, joints = batch.bodies, batch.joints
+    B = config.max_bodies
+    dyn = (bodies.type == 2) & bodies.alive
+    touching = contacts.alive & (contacts.point_count > 0)
+    ccolor, c_overflow = coloring.assign_colors(
+        contacts.color, contacts.body_a, contacts.body_b, touching, dyn, B, config.max_colors,
+        rounds=config.color_rounds,
+    )
+    c_active = touching & (ccolor >= 0)
+    jcolor, j_overflow = coloring.assign_colors(
+        joints.color, joints.body_a, joints.body_b, joints.alive, dyn, B, config.joint_max_colors,
+        rounds=config.color_rounds,
+    )
+    cmap = make_body_map(contacts.body_a, contacts.body_b, ccolor, c_active, dyn, B, config.max_colors)
+    # mouse joints never write body A
+    jmap = make_body_map(
+        joints.body_a, joints.body_b, jcolor, joints.alive & (jcolor >= 0), dyn, B, config.joint_max_colors,
+        write_a_extra=joints.type != 1,
+    )
+    overflow = c_overflow + (c_active & ~cmap.winner).sum(dim=1) + j_overflow
+    return (dataclasses.replace(contacts, color=ccolor), dataclasses.replace(joints, color=jcolor),
+            (ccolor, cmap, jcolor, jmap), overflow)
+
+
+class Prepared(NamedTuple):
+    """What the per-world step has made of a batch before its solve."""
+
+    contacts: Contacts
+    joints: Joints
+    x: FusedInputs  # the inputs the step hands the fused solve (K1)
+    cons: ContactCons
+    jcons: JointCons
+    pairs: broadphase.PairResult
+    sbt: torch.Tensor
+    touching: torch.Tensor
+    overflow: torch.Tensor
+
+
+def prepare(batch: State, dt: float, config: SimConfig) -> Prepared:
+    """The per-world step up to its solve: pairs, narrowphase, colors and
+    body maps, the prepared constraints and the fused solve's inputs."""
+    contacts, pairs, sbt = _pre_solve(batch, config)
+    touching = contacts.alive & (contacts.point_count > 0)
+    contacts, joints, colors, overflow = _color(batch, contacts, config)
+    dt_t = torch.tensor(float(dt), dtype=torch.float32, device=batch.gravity.device)
+    x, cons, jcons = prepare_fused(batch.bodies, contacts, joints, *colors, batch.gravity, dt_t, config)
+    return Prepared(contacts, joints, x, cons, jcons, pairs, sbt, touching, overflow)
+
+
+def step(batch: State, dt: float, config: SimConfig) -> State:
+    """One step of every world of a [W, ...] batch, each on its own (the
+    JAX `step` vmapped over worlds, with the fused solver). Runs on the
+    batch's device."""
+    assert not config.lane_solve, "step is the per-world step (freeze with lane_solve=False)"
+    p = prepare(batch, dt, config)
+    new_bodies, contacts, joints = solve_prepared(batch.bodies, p.contacts, p.joints, p.x, p.cons, p.jcons, config)
+    return _post_solve(
+        batch, new_bodies, contacts, joints, p.pairs.count, p.pairs.overflow, p.sbt, p.touching, p.overflow,
     )

@@ -2,8 +2,9 @@
 `State` of tensors and a `SimConfig`.
 
 An own copy of the JAX package's `world.py` API for what the port runs:
-bodies, polygon shapes, mass properties (reference: src/body.c:152-218) and
-the scene-aware default configuration (grid cell, colors, capacities).
+bodies, polygon shapes, revolute and mouse joints (reference:
+src/joint.c:154-223), mass properties (src/body.c:152-218) and the
+scene-aware default configuration (grid cell, colors, capacities).
 """
 
 from __future__ import annotations
@@ -14,7 +15,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import AABB_MARGIN, SPECULATIVE_DISTANCE, BodyType, SimConfig, SolverType
+from .config import (
+    AABB_MARGIN,
+    FUSED_SOLVERS,
+    LANE_SOLVERS,
+    MAX_POLYGON_VERTICES,
+    SPECULATIVE_DISTANCE,
+    BodyType,
+    SimConfig,
+    SolverType,
+)
 from .ops import geometry
 from .state import Bodies, Contacts, Diagnostics, Joints, Shapes, State
 
@@ -65,6 +75,32 @@ class _Shape:
     def_: ShapeDef
 
 
+@dataclasses.dataclass
+class _Joint:
+    type: int  # 0 revolute, 1 mouse
+    body_a: int
+    body_b: int
+    local_anchor_a: np.ndarray
+    local_anchor_b: np.ndarray
+    collide_connected: bool = False
+    reference_angle: float = 0.0
+    lower_angle: float = 0.0
+    upper_angle: float = 0.0
+    enable_limit: bool = False
+    enable_motor: bool = False
+    motor_speed: float = 0.0
+    max_motor_torque: float = 0.0
+    target: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(2))
+    hertz: float = 0.0
+    damping_ratio: float = 0.0
+
+
+# K1 (csrc/fused_solve.cu) keeps each world's body state and per-body
+# constants, 16 floats a body, in shared memory: at most 227 KB a block
+K1_SMEM_BYTES = 232448
+K1_BODY_BYTES = 16 * 4
+
+
 def _rot_of(angle):
     return np.array([np.sin(angle), np.cos(angle)], np.float64)
 
@@ -86,6 +122,7 @@ class World:
         self.gravity = np.asarray(gravity, np.float64)
         self.bodies: list[_Body] = []
         self.shapes: list[_Shape] = []
+        self.joints: list[_Joint] = []
 
     def create_body(self, def_: Optional[BodyDef] = None, **kw) -> int:
         if def_ is None:
@@ -106,6 +143,42 @@ class World:
         self.shapes.append(_Shape(body, geom, def_))
         self.bodies[body].shapes.append(len(self.shapes) - 1)
         return len(self.shapes) - 1
+
+    def get_local_point(self, body: int, world_point):
+        """World point -> body origin frame (s2Body_GetLocalPoint)."""
+        b = self.bodies[body]
+        s, c = _rot_of(b.def_.angle)
+        v = np.asarray(world_point, np.float64) - np.asarray(b.def_.position, np.float64)
+        return np.array([c * v[0] + s * v[1], -s * v[0] + c * v[1]])
+
+    def create_revolute_joint(
+        self, body_a: int, body_b: int, local_anchor_a=(0.0, 0.0), local_anchor_b=(0.0, 0.0),
+        reference_angle: float = 0.0, lower_angle: float = 0.0, upper_angle: float = 0.0,
+        enable_limit: bool = False, enable_motor: bool = False, motor_speed: float = 0.0,
+        max_motor_torque: float = 0.0, collide_connected: bool = False,
+    ) -> int:
+        """reference: src/joint.c:181-223"""
+        self.joints.append(_Joint(
+            0, body_a, body_b,
+            np.asarray(local_anchor_a, np.float64), np.asarray(local_anchor_b, np.float64),
+            collide_connected, reference_angle, lower_angle, upper_angle,
+            enable_limit, enable_motor, motor_speed, max_motor_torque,
+        ))
+        return len(self.joints) - 1
+
+    def create_mouse_joint(self, body_a: int, body_b: int, target, hertz: float, damping_ratio: float) -> int:
+        """body_b is dragged toward target (reference: src/joint.c:154-179).
+        body_a must not be dynamic: the joint reads body A's velocity but
+        never writes it or claims it in the body map, so a solver pass may
+        write a dynamic body A while the joint reads it."""
+        if self.bodies[body_a].def_.type == BodyType.DYNAMIC:
+            raise ValueError(f"mouse joint: body A ({body_a}) is dynamic; attach the joint to a static or kinematic body")
+        target = np.asarray(target, np.float64)
+        self.joints.append(_Joint(
+            1, body_a, body_b, self.get_local_point(body_a, target), self.get_local_point(body_b, target),
+            collide_connected=True, target=target, hertz=hertz, damping_ratio=damping_ratio,
+        ))
+        return len(self.joints) - 1
 
     def _compute_mass(self, body_idx: int):
         """reference: src/body.c:152-218, with the center-of-mass velocity
@@ -155,19 +228,25 @@ class World:
             out.append((lo, hi, margin))
         return out
 
-    def _max_colors_default(self) -> int:
-        """Scene-aware contact color count: greedy first-fit needs about
-        (max constraint degree + 1) colors; the degree is estimated from the
-        initial fat-AABB overlaps, with a floor of 8."""
+    def _color_defaults(self) -> tuple[int, int]:
+        """Scene-aware (max_colors, joint_max_colors): greedy first-fit needs
+        about (max constraint degree + 1) colors, with a floor of 8. The joint
+        degree is exact; the contact degree is estimated from the initial
+        fat-AABB overlaps."""
         nb = len(self.bodies)
+        dyn_body = np.array([b.def_.type == BodyType.DYNAMIC for b in self.bodies], bool)
+        jdeg = np.zeros(max(nb, 1), np.int64)
+        for j in self.joints:
+            for b in (j.body_a, j.body_b):
+                jdeg[b] += dyn_body[b]
+        joint_colors = int(min(30, max(8, int(jdeg.max()) + 2)))
         n = len(self.shapes)
         if not n:
-            return 8
+            return 8, joint_colors
         bounds = self._shape_bounds()
         lo = np.stack([b[0] - b[2] for b in bounds])
         hi = np.stack([b[1] + b[2] for b in bounds])
         sbody = np.array([s.body for s in self.shapes], np.int64)
-        dyn_body = np.array([b.def_.type == BodyType.DYNAMIC for b in self.bodies], bool)
         deg = np.zeros(max(nb, 1), np.int64)
         sdyn = dyn_body[sbody]
         for c0 in range(0, n, 512):
@@ -180,11 +259,12 @@ class World:
             )
             np.add.at(deg, sbody[c0:c1], ov.sum(axis=1))
         cdeg = int(deg[dyn_body].max()) if dyn_body.any() else 0
-        return int(min(30, max(8, cdeg + 2)))
+        return int(min(30, max(8, cdeg + 2))), joint_colors
 
     def default_config(self, **overrides) -> SimConfig:
         nb = _round(len(self.bodies) + 1, 8)
         ns = _round(len(self.shapes) + 1, 8)
+        nj = _round(len(self.joints) + 1, 8)
         ndyn = sum(1 for s in self.shapes if self.bodies[s.body].def_.type == BodyType.DYNAMIC)
         nc = _round(max(64, 8 * max(ndyn, 1)), 64)
 
@@ -200,27 +280,40 @@ class World:
         dyn_ext = sorted(e for e, d in extents if d) or [1.0]
         cell = max(0.3, 1.05 * dyn_ext[int(0.9 * (len(dyn_ext) - 1))])
         n_big = sum(1 for e, _ in extents if e > cell)
+        max_colors, joint_max_colors = self._color_defaults()
         cfg = SimConfig(
-            solver=self.solver, max_bodies=nb, max_shapes=ns, max_contacts=nc, max_joints=8,
+            solver=self.solver, max_bodies=nb, max_shapes=ns, max_contacts=nc, max_joints=nj,
             grid_cell=cell, max_big_shapes=_round(n_big + 4, 4),
-            max_colors=self._max_colors_default(),
+            max_colors=max_colors, joint_max_colors=joint_max_colors,
         )
         return cfg.replace(**overrides) if overrides else cfg
 
     def freeze(self, config: Optional[SimConfig] = None, device="cuda", **overrides) -> tuple[State, SimConfig]:
         """Pack the scene into a `State` on `device` and its `SimConfig`.
-        `contact_bucket_cap=-1` sizes the bucket capacity to twice the
-        uniform share of the contact table."""
+        `contact_bucket_cap=-1` sizes the lane step's bucket capacity to
+        twice the uniform share of the contact table. `lane_solve=False`
+        configures the per-world step."""
         if config is None:
             config = self.default_config(**overrides)
         assert config.max_bodies >= len(self.bodies)
         assert config.max_shapes >= len(self.shapes)
+        assert config.max_joints >= len(self.joints)
         assert config.max_shapes * config.max_shapes < (1 << 31), "pair keys must fit int32"
-        from .config import LANE_SOLVERS
-
-        assert config.solver in LANE_SOLVERS, f"the lane step runs {sorted(s.name for s in LANE_SOLVERS)}"
-        assert config.max_colors <= 30, "assign_colors packs colors into an int32 bitmask"
-        assert config.contact_bucket_cap != 0, "the lane step needs the bucketed layout"
+        assert max(config.max_colors, config.joint_max_colors) <= 30, (
+            "assign_colors packs colors into an int32 bitmask"
+        )
+        if config.lane_solve:
+            assert config.solver in LANE_SOLVERS, f"the lane step runs {sorted(s.name for s in LANE_SOLVERS)}"
+            assert config.contact_bucket_cap != 0, "the lane step needs the bucketed layout"
+            assert not self.joints, "the lane step solves no joints"
+        else:
+            assert config.solver in FUSED_SOLVERS, (
+                f"the per-world step's fused solve runs {sorted(s.name for s in FUSED_SOLVERS)}"
+            )
+            assert config.max_bodies * K1_BODY_BYTES <= K1_SMEM_BYTES, (
+                "the fused solve keeps a world's bodies in shared memory: reduce max_bodies"
+            )
+            config = config.replace(contact_bucket_cap=0)
         if config.contact_bucket_cap < 0:
             cap = -(-2 * config.max_contacts // config.max_colors)
             config = config.replace(contact_bucket_cap=(cap + 7) // 8 * 8)
@@ -276,12 +369,20 @@ class World:
                 for k, v in d.items()
             }
 
+        J = _zeros_joints(config.max_joints)
+        for i, j in enumerate(self.joints):
+            for k in ("type", "body_a", "body_b", "local_anchor_a", "local_anchor_b", "collide_connected",
+                      "reference_angle", "lower_angle", "upper_angle", "enable_limit", "enable_motor",
+                      "motor_speed", "max_motor_torque", "target", "hertz", "damping_ratio"):
+                J[k][i] = getattr(j, k)
+            J["alive"][i] = True
+
         C = config.max_contacts
         state = State(
             bodies=Bodies(**t(B)),
             shapes=Shapes(**t(S)),
             contacts=Contacts(**t(_zeros_contacts(C))),
-            joints=Joints(**t(_zeros_joints(config.max_joints))),
+            joints=Joints(**t(J)),
             gravity=torch.tensor(self.gravity, dtype=torch.float32, device=device),
             diag=Diagnostics(**t(dict(
                 contact_count=np.zeros((), np.int32), pair_count=np.zeros((), np.int32),
@@ -309,8 +410,7 @@ def _zeros_bodies(n):
 
 
 def _zeros_shapes(n):
-    from .config import MAX_POLYGON_VERTICES as MPV
-
+    MPV = MAX_POLYGON_VERTICES
     f = lambda *s: np.zeros(s, np.float32)  # noqa: E731
     return {
         "body": np.full((n,), -1, np.int32),

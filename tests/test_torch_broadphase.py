@@ -134,3 +134,61 @@ def test_update_fat_aabbs_matches_jax():
     ref = np.asarray(jbp.update_fat_aabbs(jshapes, jnp.asarray(aabb), jnp.asarray(body_type)))
     got = pbp.update_fat_aabbs(torch.from_numpy(fat), torch.from_numpy(aabb), torch.from_numpy(body_type))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _batch(trees, cls):
+    return from_numpy(cls, jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *trees), "cpu")
+
+
+def test_find_pairs_and_match_per_world_match_jax():
+    """Two worlds whose shapes moved apart differently (fat AABBs jittered
+    with other seeds), paired at once and matched against each world's own
+    old table, which carries random values: each world equal to the JAX
+    functions on its own state."""
+    W = 2
+    rng = np.random.RandomState(9)
+    scenes = [_scene(8, seed) for seed in (6, 7)]
+    olds = [_scene(8, seed) for seed in (10, 11)]
+    jcfg, pcfg = scenes[0][1], scenes[0][3]
+    ref_pairs, ref_match, old_tables = [], [], []
+    for (jstate, _, _, _), (jold, _, _, _) in zip(scenes, olds):
+        with jax.disable_jit():
+            jj = jbp.jointed_body_keys(jstate.joints, jcfg)
+            old_pairs = jbp.find_pairs_grid(jold.shapes, jold.bodies.type, jj, jcfg)
+            new_pairs = jbp.find_pairs_grid(jstate.shapes, jstate.bodies.type, jj, jcfg)
+        C = old_pairs.key.shape[0]
+
+        def r(*shape):
+            return jnp.asarray(rng.normal(size=(C,) + shape).astype(np.float32))
+
+        def ri(lo, hi, *shape):
+            return jnp.asarray(rng.randint(lo, hi, size=(C,) + shape).astype(np.int32))
+
+        old = dataclasses.replace(
+            jstate.contacts, key=old_pairs.key, shape_a=old_pairs.shape_a, shape_b=old_pairs.shape_b,
+            normal=r(2), anchor_a=r(2, 2), anchor_b=r(2, 2), separation=r(2),
+            normal_impulse=r(2), tangent_impulse=r(2), point_id=ri(0, 2000, 2),
+            persisted=jnp.asarray(rng.rand(C, 2) < 0.5), point_count=ri(0, 3), cache_count=ri(0, 4),
+            cache_index_a=ri(0, 8, 3), cache_index_b=ri(0, 8, 3), color=ri(-1, 9),
+            alive=old_pairs.valid & jnp.asarray(rng.rand(C) < 0.9),
+        )
+        with jax.disable_jit():
+            jm = jbp.match_contacts(old, new_pairs, jstate.shapes, jstate.bodies.type, jstate.shapes.body)
+        ref_pairs.append(new_pairs)
+        ref_match.append(jm)
+        old_tables.append(old)
+
+    shapes = _batch([s[0].shapes for s in scenes], Shapes)
+    body_type = torch.from_numpy(np.stack([np.asarray(s[0].bodies.type) for s in scenes]))
+    jointed = pbp.jointed_body_keys(_batch([s[0].joints for s in scenes], Joints), pcfg)
+    pp = pbp.find_pairs_grid(shapes, body_type, jointed, pcfg)
+    pm = pbp.match_contacts(_batch(old_tables, Contacts), pp, shapes)
+    for w in range(W):
+        for name in ref_pairs[w]._fields:
+            np.testing.assert_array_equal(
+                getattr(pp, name)[w].numpy(), np.asarray(getattr(ref_pairs[w], name)), err_msg=name
+            )
+        assert_tree_close({k: v[w] for k, v in to_numpy(pm).items()}, np_tree(ref_match[w]), EXACT)
+    assert not torch.equal(pp.key[0], pp.key[1])
+    carried = pm.cache_count > 0
+    assert carried.any() and not carried.all()

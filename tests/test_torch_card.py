@@ -1,4 +1,5 @@
-"""K2 (solver2d_tpu_torch/csrc/narrow.cu) against its plain twin on the card.
+"""The port's kernels against their plain twins on the card: K2
+(solver2d_tpu_torch/csrc/narrow.cu) and K1 (csrc/fused_solve.cu).
 
 Needs a CUDA card and nvcc; skips without them. It imports neither jax nor
 the JAX package, so it also runs on a machine without JAX, where
@@ -21,7 +22,7 @@ GJK_ITERS = 10
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K2 is CUDA C++ with no CPU mode (its twin is tested on the CPU)")
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode (their twins are tested on the CPU)")
     return torch.device("cuda", 0)
 
 
@@ -102,3 +103,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         narrow_cuda.collide(geom, sa, sb, pa.transpose(1, 2), pb, cache, GJK_ITERS)
     with pytest.raises(ValueError):
         narrow_cuda.collide(geom, sa.cpu(), sb, pa, pb, cache, GJK_ITERS)
+
+
+# ------------------------------------------------------------ K1
+
+
+def _k1_inputs(scene, W, dev, steps=2):
+    """The fused solve's inputs after `steps` steps of W worlds of a small
+    scene of the per-world path, the worlds' velocities jittered apart."""
+    from solver2d_tpu_torch import SolverType, batched_step, bridge, pyramid_world, replicate
+    from solver2d_tpu_torch.solvers.loops import fused_static
+    from solver2d_tpu_torch.step import prepare
+
+    if scene == "pyramid":
+        world, _ = pyramid_world(SolverType.TGS_SOFT, 8)
+        kw = dict(max_colors=10, gjk_iters=10)
+    else:
+        world, planks = bridge(SolverType.TGS_SOFT, 24)
+        x, y = world.bodies[planks[12]].def_.position
+        world.create_mouse_joint(0, planks[12], (x + 0.5, y + 2.0), 5.0, 0.7)
+        kw = dict(max_colors=8)
+    state, cfg = world.freeze(device=dev, lane_solve=False, **kw)
+    batch = replicate(state, W)
+    g = torch.Generator().manual_seed(0)
+    dyn = (batch.bodies.type == 2)[..., None]
+    jitter = (0.3 * torch.randn(batch.bodies.v.shape, generator=g)).to(dev)
+    batch.bodies.v = torch.where(dyn, batch.bodies.v + jitter * torch.arange(W, device=dev)[:, None, None], batch.bodies.v)
+    step = batched_step(cfg)
+    for _ in range(steps):
+        batch = step(batch, 1.0 / 60.0)
+    return prepare(batch, 1.0 / 60.0, cfg).x, fused_static(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["pyramid", "bridge"])
+def test_k1_matches_twin(card, scene):
+    from solver2d_tpu_torch.solvers import fused_cuda
+    from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
+
+    x, static = _k1_inputs(scene, 8, card)
+    before = fused_cuda.fused_solve.launches
+    got = fused_cuda.fused_solve(x, **static)
+    want = fused_solve_plain(x, **static)
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_solve.launches == before + 1
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-5
+    assert not torch.equal(got[0][0], got[0][1])  # the worlds differ
+
+
+@pytest.mark.cuda
+def test_k1_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from solver2d_tpu_torch.solvers import fused_cuda
+
+    x, static = _k1_inputs("bridge", 2, card, steps=0)
+    with pytest.raises(ValueError):
+        fused_cuda.fused_solve(x._replace(cfields=x.cfields.double()), **static)
+    with pytest.raises(ValueError):
+        fused_cuda.fused_solve(x._replace(cint=x.cint.cpu()), **static)
+    with pytest.raises(ValueError):
+        fused_cuda.fused_solve(x._replace(jfields=x.jfields.transpose(1, 2).contiguous().transpose(1, 2)), **static)

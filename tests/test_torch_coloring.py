@@ -88,3 +88,33 @@ def test_buckets_and_body_map_match_jax(seed, cap):
     )
     np.testing.assert_array_equal(pmap.slot.numpy(), np.asarray(jmap.slot))
     np.testing.assert_array_equal(pmap.winner.numpy(), np.asarray(jmap.winner))
+
+
+def test_assign_colors_and_body_map_per_world_match_jax():
+    """A batch of two different graphs, colored at once (bucket_cap 0, as
+    the per-world step colors contacts and joints), and their body maps
+    with endpoints A written only where `write_a_extra` (mouse joints never
+    write body A): each world equal to the JAX function on its own graph."""
+    B, K = 120, 9
+    graphs = [_graph(seed) for seed in (6, 7)]
+    extra = [np.random.RandomState(s).rand(600) < 0.8 for s in (8, 9)]
+    pc, po = pcol.assign_colors(*(torch.stack([_t(g[i]) for g in graphs]) for i in (4, 0, 1, 2, 3)), B, K)
+    pact = torch.stack([_t(g[2]) for g in graphs]) & (pc >= 0)
+    pmap = p_make_body_map(
+        torch.stack([_t(g[0]) for g in graphs]), torch.stack([_t(g[1]) for g in graphs]), pc, pact,
+        torch.stack([_t(g[3]) for g in graphs]), B, K, write_a_extra=torch.stack([_t(e) for e in extra]),
+    )
+    for w, (ba, bb, active, dyn, carried) in enumerate(graphs):
+        with jax.disable_jit():
+            jc, jo = jcol.assign_colors(
+                jnp.asarray(carried), jnp.asarray(ba), jnp.asarray(bb), jnp.asarray(active), jnp.asarray(dyn), B, K,
+            )
+            jmap = j_make_body_map(
+                jnp.asarray(ba), jnp.asarray(bb), jc, jnp.asarray(active) & (jc >= 0), jnp.asarray(dyn), B, K,
+                write_a_extra=jnp.asarray(extra[w]),
+            )
+        np.testing.assert_array_equal(pc[w].numpy(), np.asarray(jc))
+        assert int(po[w]) == int(jo)
+        np.testing.assert_array_equal(pmap.slot[w].numpy(), np.asarray(jmap.slot))
+        np.testing.assert_array_equal(pmap.winner[w].numpy(), np.asarray(jmap.winner))
+    assert not torch.equal(pc[0], pc[1])

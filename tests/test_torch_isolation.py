@@ -18,10 +18,21 @@ SCRIPT = textwrap.dedent(
     torch.set_num_threads(1)
     import chip_smoke
     import solver2d_tpu_torch
-    from solver2d_tpu_torch import SolverType, pyramid_world, replicate, step_batch
+    from solver2d_tpu_torch import SolverType, batched_step, bridge, pyramid_world, replicate, step_batch
+    from solver2d_tpu_torch.utils.metrics import joint_error
     state, cfg = pyramid_world(SolverType.TGS_SOFT, 3)[0].freeze(device="cpu", contact_bucket_cap=-1)
     out = step_batch(replicate(state, 2), 1.0 / 60.0, cfg)
     assert int(out.diag.step_id[0]) == 1 and bool(torch.isfinite(out.bodies.position).all())
+    # the per-world step: contacts, soft revolute joints and a mouse joint
+    w, planks = bridge(SolverType.TGS_SOFT, 4)
+    w.create_mouse_joint(0, planks[1], (w.bodies[planks[1]].def_.position[0], 21.0), 5.0, 0.7)
+    state, cfg = w.freeze(device="cpu", lane_solve=False, iterations=1, extra_iterations=1)
+    out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+    assert int(out.diag.step_id[0]) == 1 and bool(torch.isfinite(out.bodies.position).all())
+    assert float(joint_error(out).max()) < 0.1
+    state, cfg = pyramid_world(SolverType.TGS_SOFT, 3)[0].freeze(device="cpu", lane_solve=False, iterations=1)
+    out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+    assert int(out.diag.contact_count[0]) > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "solver2d_tpu"))
     assert not [m for m in loaded if sys.modules[m] is not None], loaded
     print("isolated ok")

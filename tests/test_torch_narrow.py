@@ -76,3 +76,51 @@ def test_wrapper_runs_the_twin_on_cpu_tensors():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert narrow_cuda.collide.launches == before  # no kernel launched
+
+
+def test_update_manifolds_per_world_matches_jax():
+    """Two worlds of the base-3 pyramid posed differently (seeded jitter of
+    positions and angles), their own pairs, through the port's per-world
+    narrowphase (the worlds flattened into one lane batch) and the JAX
+    `update_manifolds(impl="lanes")` on each world: cold, then warm from
+    the first call's caches. Integers equal, floats at f32 round-off."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    import solver2d_tpu_torch.step as pstep
+    from solver2d_tpu.step import _pre_solve, update_manifolds
+    from solver2d_tpu_torch.state import Contacts, from_numpy, state_from_numpy, to_numpy
+    from torch_parity import jax_world_scene, np_tree, stack
+
+    jstate, jcfg = jax_world_scene("pyramid")
+    rng = np.random.RandomState(21)
+    worlds = []
+    for _ in range(2):
+        b = jstate.bodies
+        dyn = (np.asarray(b.type) == 2)[:, None]
+        ang = rng.normal(scale=0.05, size=b.rot.shape[0]).astype(np.float32)
+        rot = np.where(dyn, np.stack([np.sin(ang), np.cos(ang)], -1), np.asarray(b.rot)).astype(np.float32)
+        org = (np.asarray(b.origin) + np.where(dyn, rng.normal(scale=0.03, size=b.origin.shape), 0)).astype(np.float32)
+        worlds.append(dataclasses.replace(jstate, bodies=dataclasses.replace(b, origin=jnp.asarray(org), rot=jnp.asarray(rot))))
+    refs, cold = [], []
+    with jax.disable_jit():
+        for s in worlds:
+            contacts, _, _ = _pre_solve(s, jcfg)  # pairs, match and a first (cold) narrowphase
+            cold.append(contacts)
+            refs.append(update_manifolds(s, contacts, gjk_iters=jcfg.gjk_iters, impl="lanes"))
+    batch = state_from_numpy(stack(worlds), "cpu")
+    contacts = from_numpy(Contacts, stack(cold), "cpu")
+    got = pstep.update_manifolds(batch, contacts, jcfg.gjk_iters, impl="lanes")
+    for w in range(2):
+        ref = np_tree(refs[w])
+        for k, v in to_numpy(got).items():
+            r = np.asarray(getattr(ref, k))
+            if v.dtype.kind == "f":
+                np.testing.assert_allclose(v[w], r, rtol=1e-5, atol=1e-5, err_msg=k)
+            else:
+                np.testing.assert_array_equal(v[w], r, err_msg=k)
+    assert (got.point_count > 0).sum() > 0 and (got.cache_count[got.alive] > 0).all()
+    assert not torch.equal(got.normal[0], got.normal[1])
+    with pytest.raises(NotImplementedError):
+        pstep.update_manifolds(batch, contacts, jcfg.gjk_iters, impl="xla")

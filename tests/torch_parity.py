@@ -52,3 +52,97 @@ def to_jax(template, port: dict):
         t = getattr(template, k)
         kw[k] = to_jax(t, v) if isinstance(v, dict) else jnp.asarray(v)
     return dataclasses.replace(template, **kw)
+
+
+# ------------------------------------------------------ the per-world step
+#
+# The per-world path's parity tests run the JAX package's per-world `step`
+# with its XLA solver (`use_pallas_solver=False`, no buckets): the fused TPU
+# kernel reuses the same per-constraint code (pallas_solver.py:1-30), and
+# its interpret mode runs for minutes here. The scenes are small and the
+# substeps few, so that JAX's op-by-op step takes seconds.
+
+# the per-world tests' configuration: 2 substeps + 1 relax pass
+WORLD_KW = dict(iterations=2, extra_iterations=1, gjk_iters=10)
+DT = 1.0 / 60.0
+# Float tolerances of the per-world tests, from what holds on the CPU (far
+# inside tests/test_pallas_solver.py:81-88's 2e-4 position, 1e-3 velocity,
+# 2e-3 impulse): on the base-3 pyramid the port's solve and step equal the
+# JAX package's bit for bit; on the 4-plank Bridge with a mouse joint they
+# differ by at most 1.5e-7 (joint impulses; velocities 7.5e-8, rotations
+# 7.5e-9) over 3 steps.
+WORLD_TOL = {"pyramid": dict(rtol=0, atol=0), "bridge": dict(rtol=0, atol=1e-6)}
+
+
+def jax_world_scene(name: str):
+    """(state, config) of the JAX package: the base-3 pyramid, or the
+    4-plank Bridge with a mouse joint dragging plank 2."""
+    from solver2d_tpu.config import SolverType
+    from solver2d_tpu.models.contact_scenes import pyramid_world
+    from solver2d_tpu.models.joint_scenes import bridge
+
+    if name == "pyramid":
+        w, _ = pyramid_world(SolverType.TGS_SOFT, 3)
+        # the scene has no joints: the XLA solver skips the (inert) joint
+        # phases that the fused solve runs
+        kw = dict(solve_joints=False)
+    else:
+        w = bridge(SolverType.TGS_SOFT, 4).world
+        p = w.body_position(2)
+        w.create_mouse_joint(0, 2, (p[0] + 0.3, p[1] + 1.0), 5.0, 0.7)
+        # no contacts; a joint has at most 3 neighbours: 4 colors do
+        kw = dict(max_colors=4, joint_max_colors=4)
+    return w.freeze(solver=SolverType.TGS_SOFT, narrowphase="lanes", **WORLD_KW, **kw)
+
+
+def port_config(jcfg):
+    """The port's per-world configuration with the JAX config's values."""
+    import solver2d_tpu_torch as port
+
+    fields = {k: getattr(jcfg, k) for k in port.SimConfig.__dataclass_fields__ if hasattr(jcfg, k)}
+    return port.SimConfig(**fields).replace(lane_solve=False)
+
+
+def jax_worlds(state, n: int, seed: int = 0):
+    """n copies of a JAX state, world i with its dynamic bodies' velocities
+    jittered by i * N(0, 0.3) (numpy, seeded): worlds that differ."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        dv = (i * rng.normal(scale=0.3, size=state.bodies.v.shape)).astype(np.float32)
+        dyn = np.asarray(state.bodies.type) == 2
+        v = np.asarray(state.bodies.v) + np.where(dyn[:, None], dv, 0.0).astype(np.float32)
+        out.append(dataclasses.replace(state, bodies=dataclasses.replace(state.bodies, v=jnp.asarray(v))))
+    return out
+
+
+def stack(trees):
+    """Stack JAX trees of one world each into numpy arrays [W, ...]."""
+    return jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *trees)
+
+
+def jax_colors(state, contacts, cfg):
+    """The per-world coloring of the JAX `step` (dense branch, incremental):
+    (contacts, joints, (ccolor, cmap, jcolor, jmap))."""
+    import dataclasses
+
+    from solver2d_tpu.ops import coloring
+    from solver2d_tpu.solvers.common import make_body_map
+
+    b, j = state.bodies, state.joints
+    dyn = (b.type == 2) & b.alive
+    touching = contacts.alive & (contacts.point_count > 0)
+    ccolor, _ = coloring.assign_colors(contacts.color, contacts.body_a, contacts.body_b, touching, dyn,
+                                       cfg.max_bodies, cfg.max_colors, rounds=cfg.color_rounds)
+    jcolor, _ = coloring.assign_colors(j.color, j.body_a, j.body_b, j.alive, dyn, cfg.max_bodies,
+                                       cfg.joint_max_colors, rounds=cfg.color_rounds)
+    cmap = make_body_map(contacts.body_a, contacts.body_b, ccolor, touching & (ccolor >= 0), dyn,
+                         cfg.max_bodies, cfg.max_colors)
+    jmap = make_body_map(j.body_a, j.body_b, jcolor, j.alive & (jcolor >= 0), dyn, cfg.max_bodies,
+                         cfg.joint_max_colors, write_a_extra=j.type != 1)
+    return (dataclasses.replace(contacts, color=ccolor), dataclasses.replace(j, color=jcolor),
+            (ccolor, cmap, jcolor, jmap))

@@ -1,0 +1,78 @@
+"""How the JAX package's per-world step moves the two scenes of the port's
+per-world path, and how far the port is from it.
+
+Steps the reference package (`solver2d_tpu`: `step.step` with the XLA
+solver, which runs the same per-constraint code as its fused TPU kernel, on
+the CPU, op by op) and the PyTorch port (`solver2d_tpu_torch.step`, on the
+CPU, through the plain twins of K1 and K2) from the same frozen world at
+the configurations of `chip_smoke.py`:
+
+- pyramid: the base-20 pyramid (211 bodies; 896 contacts, 10 colors,
+  GJK 10): the largest displacement of a box from its start;
+- bridge: the 160-plank Bridge (161 revolute joints, 8 colors): the largest
+  joint separation (`joint_error`).
+
+Prints both after every step, and the largest position difference between
+the two. The JAX figures set chip_smoke's MAX_DRIFT_B and MAX_JOINT_ERROR_A.
+
+Usage: python tools/jax_world_bounds.py pyramid|bridge [steps]
+"""
+
+import os
+import sys
+
+os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+from solver2d_tpu.config import SolverType  # noqa: E402
+from solver2d_tpu.models.contact_scenes import pyramid_world  # noqa: E402
+from solver2d_tpu.models.joint_scenes import bridge  # noqa: E402
+from solver2d_tpu.step import step  # noqa: E402
+from solver2d_tpu.utils.metrics import joint_error  # noqa: E402
+import solver2d_tpu_torch as port  # noqa: E402
+from solver2d_tpu_torch.utils.metrics import joint_error as port_joint_error  # noqa: E402
+
+
+def main(scene: str = "pyramid", steps: int = 23):
+    if scene == "pyramid":
+        w, _ = pyramid_world(SolverType.TGS_SOFT, 20)
+        kw = dict(max_contacts=896, max_colors=10, gjk_iters=10)
+    else:
+        w = bridge(SolverType.TGS_SOFT).world
+        kw = dict(max_colors=8)
+    state, cfg = w.freeze(solver=SolverType.TGS_SOFT, narrowphase="lanes", **kw)
+    pcfg = port.SimConfig(**{k: getattr(cfg, k) for k in port.SimConfig.__dataclass_fields__ if hasattr(cfg, k)})
+    pcfg = pcfg.replace(lane_solve=False)
+    pstep = port.batched_step(pcfg)
+    pbatch = port.replicate(port.state_from_numpy(jax.tree.map(np.asarray, state), device="cpu"), 1)
+    p0 = np.asarray(state.bodies.position)
+    dyn = np.asarray(state.bodies.type) == 2
+    for i in range(steps):
+        with jax.disable_jit():
+            state = step(state, jnp.float32(1.0 / 60.0), cfg)
+        pbatch = pstep(pbatch, 1.0 / 60.0)
+        pos = np.asarray(state.bodies.position)
+        ppos = pbatch.bodies.position[0].numpy()
+        if scene == "pyramid":
+            m = float(np.linalg.norm((pos - p0)[dyn], axis=-1).max())
+            pm = float(np.linalg.norm((ppos - p0)[dyn], axis=-1).max())
+            what = "largest box displacement"
+        else:
+            m = float(joint_error(state))
+            pm = float(port_joint_error(pbatch)[0])
+            what = "joint_error"
+        print(f"{scene} step {i + 1}: {what} JAX {m:.6f}, port {pm:.6f}; largest position difference "
+              f"{np.abs(pos - ppos).max():.3e}; color_overflow JAX {int(state.diag.color_overflow)}, "
+              f"port {int(pbatch.diag.color_overflow[0])}", flush=True)
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    main(sys.argv[1] if len(sys.argv) > 1 else "pyramid", int(sys.argv[2]) if len(sys.argv) > 2 else 23)
