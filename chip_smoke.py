@@ -10,11 +10,13 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    source, all started together);
 3. hold each kernel against its plain PyTorch twin on the card at the
    shapes its path gives it: K2 on the contact table after the first step
-   of the 512-world base-62 pyramid (7936 contacts per world); K1 on the
-   per-world step's solve after 2 steps of 64 base-20 pyramids (211 bodies,
-   896 contacts) and of 32 Bridges (161 bodies, 161 revolute joints) with
-   a mouse joint on plank 80. Integer outputs must be equal, floats within
-   K2_ATOL / K1_ATOL;
+   of the 512-world base-62 pyramid (7936 contacts per world); K1, in each
+   of its scripts (TGS_Soft, SoftStep, PGS_Soft), on the per-world step's
+   solve after 2 steps of 64 base-20 pyramids (211 bodies, 896 contacts),
+   of 32 Bridges (161 bodies, 161 revolute joints) with a mouse joint on
+   plank 80 held from the ground, and of 32 Bridges whose mouse joint's
+   body A is plank 79, a dynamic body. Integer outputs must be equal, K2's
+   floats within K2_ATOL, K1's equal (K1_ATOL = 0);
 4. the lane path: `step_batch` on 512 worlds x 1954 bodies at the bench
    configuration (TGS_Soft, 4 substeps + relax, 9 colors, bucket cap 896,
    GJK 10), WARMUP + STEPS steps with every launch counter reset first;
@@ -22,13 +24,15 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    must stand (largest box displacement below MAX_DRIFT), and K2 must have
    launched once a step;
 5. the same steps on the card and on the CPU (plain twins) for small
-   scenes of both paths must agree;
+   scenes of both paths must agree: the lane path under TGS_Soft and
+   SoftStep, the per-world path under each fused solver;
 6. path (b) of the per-world step (`batched_step`): 64 base-20 pyramids
-   (TGS_Soft, 4 substeps + relax, 10 colors, GJK 10), WARMUP + STEPS
-   steps: finite, no color overflow, the pyramid stands (MAX_DRIFT_B), K1
-   and K2 once a step;
-7. path (a): 32 Bridges (8 colors), WARMUP + STEPS steps: finite, joints
-   hold (joint_error below MAX_JOINT_ERROR_A), K1 once a step.
+   (4 iterations + relax, 10 colors, GJK 10), WARMUP + STEPS steps under
+   each fused solver: finite, no color overflow, the pyramid stands
+   (MAX_DRIFT_B), K1 and K2 once a step;
+7. path (a): 32 Bridges (8 colors), WARMUP + STEPS steps under each fused
+   solver: finite, no color overflow, joints hold (joint_error below
+   MAX_JOINT_ERROR_A), K1 once a step.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is `{"ok": true, "device": {...}}`.
@@ -48,18 +52,23 @@ WARMUP = 3
 STEPS = 20
 DT = 1.0 / 60.0
 K2_ATOL = 1e-5
-K1_ATOL = 1e-5
+# K1 rounds as its twin does (csrc/fused_solve.cu, "Numbers")
+K1_ATOL = 0.0
 # the per-world path's scenes: (b) base-20 pyramids, (a) Bridges
 W_B, BASE_B = 64, 20
 W_A = 32
-# Largest box displacement of path (b) after WARMUP + STEPS steps: twice
-# the JAX package's 0.026405 on the CPU at this configuration and step
-# count (tools/jax_world_bounds.py pyramid 23).
-MAX_DRIFT_B = 0.053
+# the fused solvers of the per-world step, each a script of K1
+FUSED = ("TGS_SOFT", "SOFT_STEP", "PGS_SOFT")
+# Largest box displacement of path (b) after WARMUP + STEPS steps, per
+# solver: twice the JAX package's on the CPU at this configuration and step
+# count (tools/jax_world_bounds.py pyramid 23 SOLVER): 0.026405 (TGS_Soft),
+# 0.026405 (SoftStep), 0.051025 (PGS_Soft).
+MAX_DRIFT_B = {"TGS_SOFT": 0.053, "SOFT_STEP": 2 * 0.026405, "PGS_SOFT": 2 * 0.051025}
 # Largest revolute joint separation of path (a) after WARMUP + STEPS
-# steps: twice the JAX package's 0.004900 on the CPU
-# (tools/jax_world_bounds.py bridge 23).
-MAX_JOINT_ERROR_A = 0.0098
+# steps: twice the JAX package's on the CPU (tools/jax_world_bounds.py
+# bridge 23 SOLVER): 0.004900 (TGS_Soft), 0.002153 (SoftStep), 0.007671
+# (PGS_Soft).
+MAX_JOINT_ERROR_A = {"TGS_SOFT": 0.0098, "SOFT_STEP": 2 * 0.002153, "PGS_SOFT": 2 * 0.007671}
 # Largest box displacement allowed after WARMUP + STEPS steps. The JAX
 # package on the CPU moves the boxes of a base-20 pyramid by at most 0.0264
 # after 23 steps at this configuration (tools/jax_pyramid_drift.py 20 23).
@@ -83,24 +92,26 @@ def bench_config(max_contacts):
     return dict(max_contacts=max_contacts, max_colors=9, gjk_iters=10, contact_bucket_cap=896)
 
 
-def pyramid_b(dev):
+def pyramid_b(dev, solver):
     """Path (b): the base-20 pyramid of the JAX package's K1 chip runs
     (exp/step_variants.py:16-18,38,44-49)."""
     from solver2d_tpu_torch import SolverType, pyramid_world
 
-    world, _ = pyramid_world(SolverType.TGS_SOFT, BASE_B)
+    world, _ = pyramid_world(SolverType[solver], BASE_B)
     return world.freeze(device=dev, lane_solve=False, max_contacts=896, max_colors=10, gjk_iters=10)
 
 
-def bridge_a(dev, mouse=False):
+def bridge_a(dev, solver, mouse=None):
     """Path (a): the catalog Bridge (exp/chip_joint_pallas.py:26-35), with a
-    mouse joint dragging plank 80 when asked."""
+    mouse joint dragging plank 80 when asked: held from the ground
+    (mouse="ground") or from plank 79, a dynamic body ("plank")."""
     from solver2d_tpu_torch import SolverType, bridge
 
-    world, planks = bridge(SolverType.TGS_SOFT)
+    world, planks = bridge(SolverType[solver])
     if mouse:
         x, y = world.bodies[planks[80]].def_.position
-        world.create_mouse_joint(0, planks[80], (x + 0.5, y + 2.0), 5.0, 0.7)
+        body_a = 0 if mouse == "ground" else planks[79]
+        world.create_mouse_joint(body_a, planks[80], (x + 0.5, y + 2.0), 5.0, 0.7)
     return world.freeze(device=dev, lane_solve=False, max_colors=8)
 
 
@@ -145,30 +156,44 @@ def count_float_ops(fn):
     return res, Count.ops
 
 
-def k1_bytes(x):
+def k1_contact_columns(script, warm_start):
+    """The float columns of a contact row that K1's script reads
+    (fused_solve.pack_cons_fields): TGS_Soft all but r_a0, r_b0 and the
+    separation (15-24); SoftStep all but the separation (23-24); PGS_Soft
+    all but the adjusted separation (25-26), and without the warm start
+    not the local anchors (7-14) either, which only its warm start
+    rotates."""
+    if script.mode.current_vel_anchors:
+        return 37 - 10
+    if script.mode.sep_from_delta:
+        return 37 - 2
+    return 37 - 2 - (0 if warm_start else 8)
+
+
+def k1_bytes(x, script, warm_start):
     """The bytes K1's function must move on these inputs: the int row of
     every contact and joint slot (to find the live ones); for each active
-    contact the 27 float columns the solve reads (not r_a0, r_b0 and
-    separation, columns 15-24) and its 4 impulses in and out; for each live
-    joint its 23 float columns and 5 impulses in and out; the body state in
-    and out and the body constants; h and 1/h. The port's warm-start plans
-    (c_off, c_ent, j_off, j_ent) and delta scratch belong to its design, not
-    to the function, and are left out."""
+    contact the float columns the script reads (`k1_contact_columns`) and
+    its 4 impulses in and out; for each live joint its 23 float columns and
+    5 impulses in and out; the body state in and out and the body
+    constants; h and 1/h. The port's warm-start plans (c_off, c_ent, j_off,
+    j_ent) and delta scratch belong to its design, not to the function, and
+    are left out."""
     from solver2d_tpu_torch.solvers.fused_solve import C_ACTIVE, J_ACTIVE
 
     n_c = int(((x.cint[..., 3] & C_ACTIVE) != 0).sum())
     n_j = int(((x.jint[..., 3] & J_ACTIVE) != 0).sum())
     slots = (x.cint.numel() + x.jint.numel()) * 4
-    contacts = n_c * (27 + 2 * 4) * 4
+    contacts = n_c * (k1_contact_columns(script, warm_start) + 2 * 4) * 4
     joints_ = n_j * (23 + 2 * 5) * 4
     bodies = (2 * x.bs.numel() + x.body_const.numel()) * 4
     return slots + contacts + joints_ + bodies + x.scal.numel() * 4
 
 
-def check_k1(name, state, cfg, W, dev):
+def check_k1(name, state, cfg, W, dev, timed=True):
     """K1 against its twin on the inputs the per-world step hands it after 2
-    steps of W worlds. Returns (max abs error, kernel ms, twin ms, bound ms,
-    bound_by)."""
+    steps of W worlds under cfg.solver. Returns (max abs error, kernel ms,
+    twin ms, bound ms, bound_by); the times and the bound only if `timed`."""
     import torch
 
     from solver2d_tpu_torch import batched_step, replicate
@@ -184,6 +209,7 @@ def check_k1(name, state, cfg, W, dev):
         batch = step(batch, DT)
     x = prepare(batch, DT, cfg).x
     static = fused_static(cfg)
+    script = static["script"]
     got = fused_cuda.fused_solve(x, **static)
     torch.cuda.synchronize()
     want = fused_solve_plain(x, **static)
@@ -196,19 +222,21 @@ def check_k1(name, state, cfg, W, dev):
     jflags = x.jint[..., 3]
     n_c = int(((flags & 4) != 0).sum())
     n_j = int(((jflags & 2) != 0).sum())
-    print(f"[3] K1 vs twin, {name}: W={W} B={x.bs.shape[1]} C={x.cint.shape[1]} J={x.jint.shape[1]}, "
-          f"{n_c} active contacts, {n_j} live joints; max abs err bodies {errs[0]:.3e}, normal impulses "
-          f"{errs[1]:.3e}, tangent impulses {errs[2]:.3e}, joint impulses {errs[3]:.3e} (tol {K1_ATOL})",
-          flush=True)
+    print(f"[3] K1 vs twin, {cfg.solver.name}, {name}: W={W} B={x.bs.shape[1]} C={x.cint.shape[1]} "
+          f"J={x.jint.shape[1]}, {n_c} active contacts, {n_j} live joints; max abs err bodies {errs[0]:.3e}, "
+          f"normal impulses {errs[1]:.3e}, tangent impulses {errs[2]:.3e}, joint impulses {errs[3]:.3e} "
+          f"(tol {K1_ATOL})", flush=True)
     if not err <= K1_ATOL:
-        fail(f"K1 disagrees with its plain twin ({name})")
+        fail(f"K1 disagrees with its plain twin ({cfg.solver.name}, {name})")
+    if not timed:
+        return err, None, None, None, None
     k_ms = time_cuda(lambda: fused_cuda.fused_solve(x, **static), 20)
     p_ms = time_cuda(lambda: fused_solve_plain(x, **static), 2)
 
     # the bound: the bytes this run's data needs moved once, and the
     # operations of the constraint solves it needs (each active winner
-    # solved once a pass, 2 passes a substep)
-    nbytes = k1_bytes(x)
+    # solved once a pass)
+    nbytes = k1_bytes(x, script, static["warm_start"])
     solved_c = int((((flags & 4) != 0) & ((flags & 32) != 0) & (x.cint[..., 2] >= 0)).sum())
     solved_j = int((((jflags & 2) != 0) & ((jflags & 64) != 0) & (x.jint[..., 2] >= 0)).sum())
     w0 = lambda t: t[0]  # noqa: E731
@@ -218,18 +246,23 @@ def check_k1(name, state, cfg, W, dev):
     rc = [torch.zeros((C, 2), device=dev), torch.zeros(C, device=dev)] * 2
     q = torch.zeros((C, 2), device=dev)
     _, ops_c = count_float_ops(lambda: ck.solve_contact_core(
-        cons, rc[0], rc[1], rc[2], rc[3], q, q, q, q, w0(x.n_imp), w0(x.t_imp), ck.TGS_SOFT, x.scal[1], True))
+        cons, rc[0], rc[1], rc[2], rc[3], q, q, q, q, w0(x.n_imp), w0(x.t_imp), script.mode, x.scal[1], True))
     rj = [torch.zeros((J, 2), device=dev), torch.zeros(J, device=dev)] * 2
     qj = torch.zeros((J, 2), device=dev)
     imp = joints.JointImp(x.jimp[0, :, 0:2], x.jimp[0, :, 2], x.jimp[0, :, 3], x.jimp[0, :, 4])
     _, ops_j = count_float_ops(lambda: joints.solve_joint_core(
         jc, rj[0], rj[1], rj[2], rj[3], qj, qj, qj, qj, imp, x.scal[0], x.scal[1], True, True))
-    ops = static["substeps"] * 2 * (solved_c * ops_c / C + solved_j * ops_j / J)
+    if script.loop == "substep":
+        passes = static["substeps"] * (1 + static["relax"])
+    else:
+        passes = static["substeps"] + static["relax"]
+    ops = passes * (solved_c * ops_c / C + solved_j * ops_j / J)
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     ops_ms = ops / PEAK_F32_S * 1e3
     bound = max(bytes_ms, ops_ms)
-    print(f"[3] K1 {name}: {k_ms:.3f} ms, plain twin {p_ms:.3f} ms; bound {bound:.4f} ms "
-          f"({nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms; {ops / 1e9:.4f} GFLOP -> {ops_ms:.4f} ms)", flush=True)
+    print(f"[3] K1 {cfg.solver.name} {name}: {k_ms:.4f} ms, plain twin {p_ms:.3f} ms; bound {bound:.5f} ms "
+          f"({nbytes / 1e6:.3f} MB -> {bytes_ms:.5f} ms; {ops / 1e9:.5f} GFLOP in {passes} passes -> "
+          f"{ops_ms:.5f} ms)", flush=True)
     return err, k_ms, p_ms, bound, "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -345,10 +378,16 @@ def main():
     del s1, args, k_out, p_out, fk, ik, ck, fp, ip, cp
     torch.cuda.empty_cache()
 
-    state_b, cfg_b = pyramid_b(dev)
-    state_a, cfg_a = bridge_a(dev)
-    k1_b = check_k1("(b) 64 x base-20 pyramid", state_b, cfg_b, W_B, dev)
-    k1_a = check_k1("(a) 32 x Bridge + mouse joint", *bridge_a(dev, mouse=True), W_A, dev)
+    # K1 in each script: at (b), timed; at (a) with a mouse joint held from
+    # the ground, and with one held from a dynamic plank
+    k1 = {}
+    for solver in FUSED:
+        k1[solver] = [
+            check_k1(f"(b) {W_B} x base-{BASE_B} pyramid", *pyramid_b(dev, solver), W_B, dev),
+            check_k1(f"(a) {W_A} x Bridge + mouse joint", *bridge_a(dev, solver, "ground"), W_A, dev),
+            check_k1(f"(a) {W_A} x Bridge + mouse joint on dynamic plank 79", *bridge_a(dev, solver, "plank"),
+                     W_A, dev, timed=False),
+        ]
     torch.cuda.empty_cache()
 
     # ---- 4. the lane path
@@ -391,65 +430,94 @@ def main():
           f"point counts equal {same_counts}", flush=True)
     if not (pos_err < 1e-4 and same_counts):
         fail("the card's lane step disagrees with the CPU's on a small input")
+    # the lane path's SoftStep script, on the same small batch
+    sc, cfg8s = w8.freeze(device="cpu", solver=SolverType.SOFT_STEP, **kw)
+    bc, bg = replicate(sc, 4), replicate(sc, 4).to(dev)
+    for _ in range(3):
+        bc = step_batch(bc, DT, cfg8s)
+        bg = step_batch(bg, DT, cfg8s)
+    pos_err = float((bg.bodies.position.cpu() - bc.bodies.position).abs().max())
+    same_counts = bool((bg.contacts.point_count.cpu() == bc.contacts.point_count).all())
+    print(f"[5] lane path SoftStep, base-8 pyramid, 4 worlds, 3 steps, card vs CPU: position max abs err "
+          f"{pos_err:.3e}, point counts equal {same_counts}", flush=True)
+    if not (pos_err < 1e-4 and same_counts):
+        fail("the card's lane SoftStep step disagrees with the CPU's on a small input")
     from solver2d_tpu_torch import bridge
 
-    for label, (sw, cw) in (
-        ("base-4 pyramid", pyramid_world(SolverType.TGS_SOFT, 4)[0].freeze(device="cpu", lane_solve=False)),
-        ("4-plank Bridge", bridge(SolverType.TGS_SOFT, 4)[0].freeze(device="cpu", lane_solve=False)),
-    ):
-        step = batched_step(cw)
-        bc, bg = replicate(sw, 2), replicate(sw, 2).to(dev)
-        for _ in range(3):
-            bc, bg = step(bc, DT), step(bg, DT)
-        pos_err = float((bg.bodies.position.cpu() - bc.bodies.position).abs().max())
-        same = bool((bg.contacts.color.cpu() == bc.contacts.color).all() and (bg.joints.color.cpu() == bc.joints.color).all())
-        print(f"[5] per-world path, {label}, 2 worlds, 3 steps, card vs CPU: position max abs err {pos_err:.3e}, "
-              f"colors equal {same}", flush=True)
-        if not (pos_err < 1e-4 and same):
-            fail(f"the card's per-world step disagrees with the CPU's ({label})")
+    for solver in FUSED:
+        b4 = bridge(SolverType[solver], 4)[0]
+        x, y = b4.bodies[3].def_.position
+        b4.create_mouse_joint(1, 3, (x + 0.3, y + 1.0), 5.0, 0.7)
+        for label, (sw, cw) in (
+            ("base-4 pyramid", pyramid_world(SolverType[solver], 4)[0].freeze(device="cpu", lane_solve=False)),
+            ("4-plank Bridge + mouse joint on plank 1", b4.freeze(device="cpu", lane_solve=False)),
+        ):
+            step = batched_step(cw)
+            bc, bg = replicate(sw, 2), replicate(sw, 2).to(dev)
+            for _ in range(3):
+                bc, bg = step(bc, DT), step(bg, DT)
+            pos_err = float((bg.bodies.position.cpu() - bc.bodies.position).abs().max())
+            same = bool((bg.contacts.color.cpu() == bc.contacts.color).all()
+                        and (bg.joints.color.cpu() == bc.joints.color).all())
+            print(f"[5] per-world path {solver}, {label}, 2 worlds, 3 steps, card vs CPU: position max abs err "
+                  f"{pos_err:.3e}, colors equal {same}", flush=True)
+            if not (pos_err < 1e-4 and same):
+                fail(f"the card's per-world step disagrees with the CPU's ({solver}, {label})")
 
-    # ---- 6. path (b): 64 x base-20 pyramid
-    step_b = batched_step(cfg_b)
-    batch = replicate(state_b, W_B)
-    init_pos = batch.bodies.position.clone()
-    batch, ms_b, (k1_launches, k2_b) = run_path(
-        f"[6] path (b): {W_B} worlds x base-{BASE_B} pyramid ({int(state_b.bodies.alive.sum())} bodies)",
-        lambda b: step_b(b, DT), batch, W_B, card, [fused_cuda.fused_solve, narrow_cuda.collide],
-    )
-    b, d = batch.bodies, batch.diag
-    dyn = (b.type[0] == 2) & b.alive[0]
-    drift = float((b.position - init_pos)[:, dyn].norm(dim=-1).max())
-    print(f"[6] contacts {int(d.contact_count[0])}, color_overflow max {int(d.color_overflow.max())}, "
-          f"pair_overflow any {bool(d.pair_overflow.any())}, largest box displacement {drift:.6f} "
-          f"(bound {MAX_DRIFT_B}), K1 launches {k1_launches}, K2 launches {k2_b}", flush=True)
-    if not finite(b):
-        fail("non-finite body state on path (b)")
-    if int(d.color_overflow.max()) != 0:
-        fail("color overflow on path (b)")
-    if not drift < MAX_DRIFT_B:
-        fail(f"path (b): the pyramid does not stand: displacement {drift} >= {MAX_DRIFT_B}")
-    if (k1_launches, k2_b) != (WARMUP + STEPS, WARMUP + STEPS):
-        fail(f"path (b): K1 launched {k1_launches}, K2 {k2_b} times in {WARMUP + STEPS} steps")
-    del batch, init_pos
-    torch.cuda.empty_cache()
+    # ---- 6. path (b): 64 x base-20 pyramid, and 7. path (a): 32 x Bridge,
+    # under each fused solver
+    ms_b, ms_a, k1_launches = {}, {}, {}
+    for solver in FUSED:
+        state_b, cfg_b = pyramid_b(dev, solver)
+        step_b = batched_step(cfg_b)
+        batch = replicate(state_b, W_B)
+        init_pos = batch.bodies.position.clone()
+        batch, ms_b[solver], (k1_launches[solver], k2_b) = run_path(
+            f"[6] path (b) {solver}: {W_B} worlds x base-{BASE_B} pyramid "
+            f"({int(state_b.bodies.alive.sum())} bodies)",
+            lambda b: step_b(b, DT), batch, W_B, card, [fused_cuda.fused_solve, narrow_cuda.collide],
+        )
+        b, d = batch.bodies, batch.diag
+        dyn = (b.type[0] == 2) & b.alive[0]
+        drift = float((b.position - init_pos)[:, dyn].norm(dim=-1).max())
+        print(f"[6] {solver}: contacts {int(d.contact_count[0])}, color_overflow max {int(d.color_overflow.max())}, "
+              f"pair_overflow any {bool(d.pair_overflow.any())}, largest box displacement {drift:.6f} "
+              f"(bound {MAX_DRIFT_B[solver]:.6f}), K1 launches {k1_launches[solver]}, K2 launches {k2_b}",
+              flush=True)
+        if not finite(b):
+            fail(f"non-finite body state on path (b), {solver}")
+        if int(d.color_overflow.max()) != 0:
+            fail(f"color overflow on path (b), {solver}")
+        if not drift < MAX_DRIFT_B[solver]:
+            fail(f"path (b), {solver}: the pyramid does not stand: displacement {drift} >= {MAX_DRIFT_B[solver]}")
+        if (k1_launches[solver], k2_b) != (WARMUP + STEPS, WARMUP + STEPS):
+            fail(f"path (b), {solver}: K1 launched {k1_launches[solver]}, K2 {k2_b} times in {WARMUP + STEPS} steps")
+        del batch, init_pos
+        torch.cuda.empty_cache()
 
-    # ---- 7. path (a): 32 x Bridge
-    step_a = batched_step(cfg_a)
-    batch, ms_a, (k1_a_launches,) = run_path(
-        f"[7] path (a): {W_A} worlds x Bridge ({int(state_a.bodies.alive.sum())} bodies, "
-        f"{int(state_a.joints.alive.sum())} joints)",
-        lambda b: step_a(b, DT), replicate(state_a, W_A), W_A, card, [fused_cuda.fused_solve],
-    )
-    jerr = float(joint_error(batch).max())
-    print(f"[7] joint_error max {jerr:.6f} (bound {MAX_JOINT_ERROR_A}), color_overflow max "
-          f"{int(batch.diag.color_overflow.max())}, K1 launches {k1_a_launches}", flush=True)
-    if not finite(batch.bodies):
-        fail("non-finite body state on path (a)")
-    if not jerr < MAX_JOINT_ERROR_A:
-        fail(f"path (a): the bridge's joints come apart: {jerr} >= {MAX_JOINT_ERROR_A}")
-    if k1_a_launches != WARMUP + STEPS:
-        fail(f"path (a): K1 launched {k1_a_launches} times in {WARMUP + STEPS} steps")
-    print(f"[8] ms/step: lane path {ms_step:.2f}, path (b) {ms_b:.2f}, path (a) {ms_a:.2f} on {card}", flush=True)
+        state_a, cfg_a = bridge_a(dev, solver)
+        step_a = batched_step(cfg_a)
+        batch, ms_a[solver], (k1_a_launches,) = run_path(
+            f"[7] path (a) {solver}: {W_A} worlds x Bridge ({int(state_a.bodies.alive.sum())} bodies, "
+            f"{int(state_a.joints.alive.sum())} joints)",
+            lambda b: step_a(b, DT), replicate(state_a, W_A), W_A, card, [fused_cuda.fused_solve],
+        )
+        jerr = float(joint_error(batch).max())
+        print(f"[7] {solver}: joint_error max {jerr:.6f} (bound {MAX_JOINT_ERROR_A[solver]:.6f}), color_overflow max "
+              f"{int(batch.diag.color_overflow.max())}, K1 launches {k1_a_launches}", flush=True)
+        if not finite(batch.bodies):
+            fail(f"non-finite body state on path (a), {solver}")
+        if int(batch.diag.color_overflow.max()) != 0:
+            fail(f"color overflow on path (a), {solver}")
+        if not jerr < MAX_JOINT_ERROR_A[solver]:
+            fail(f"path (a), {solver}: the bridge's joints come apart: {jerr} >= {MAX_JOINT_ERROR_A[solver]}")
+        if k1_a_launches != WARMUP + STEPS:
+            fail(f"path (a), {solver}: K1 launched {k1_a_launches} times in {WARMUP + STEPS} steps")
+        del batch
+        torch.cuda.empty_cache()
+    print(f"[8] ms/step: lane path {ms_step:.2f}; " + "; ".join(
+        f"{solver} path (b) {ms_b[solver]:.2f}, path (a) {ms_a[solver]:.2f}" for solver in FUSED) + f" on {card}",
+        flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -462,14 +530,16 @@ def main():
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         },
+    ] + [
         {
-            "name": "K1 fused soft solve (TGS_Soft)", "route": "cuda",
+            "name": f"K1 fused soft solve ({label})", "route": "cuda",
             "source": "solver2d_tpu_torch/csrc/fused_solve.cu",
             "replaces": "solver2d_tpu/solvers/pallas_solver.py:53",
-            "launches": k1_launches, "max_abs_err": max(k1_b[0], k1_a[0]),
-            "ms": k1_b[1], "plain_ms": k1_b[2], "bound_ms": k1_b[3], "bound_by": k1_b[4],
-            "library_ms": None,
-        },
+            "launches": k1_launches[solver], "max_abs_err": max(r[0] for r in k1[solver]),
+            "ms": k1[solver][0][1], "plain_ms": k1[solver][0][2], "bound_ms": k1[solver][0][3],
+            "bound_by": k1[solver][0][4], "library_ms": None,
+        }
+        for solver, label in zip(FUSED, ("TGS_Soft", "SoftStep", "PGS_Soft"))
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -8,8 +8,8 @@ lane-major narrowphase; `lane_solve` picks the step:
 - True: the lane-batched step (`step.step_batch`): shared world-0 structure,
   bucketed contact solve, no joints;
 - False: the per-world step (`step.step`, `parallel.batched_step`): each
-  world's own pairs and colors, and the fused TGS_Soft solve (kernel K1)
-  with soft revolute and mouse joints.
+  world's own pairs and colors, and the fused soft solve (kernel K1) of
+  TGS_Soft, SoftStep or PGS_Soft with soft revolute and mouse joints.
 """
 
 from __future__ import annotations
@@ -48,9 +48,9 @@ class SolverType(enum.IntEnum):
     XPBD = 9
 
 
-LANE_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.TGS_SOFT})
-# Solvers of the per-world step's fused solve (the TGS_Soft script of K1)
-FUSED_SOLVERS = frozenset({SolverType.TGS_SOFT})
+LANE_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT})
+# Solvers of the per-world step's fused solve (the scripts of K1)
+FUSED_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT})
 
 
 class BodyType(enum.IntEnum):

@@ -73,49 +73,52 @@ class MassData:
 
 def compute_mass(geom: ShapeGeom, density: float) -> MassData:
     """Mass properties of a rounded polygon (reference: src/geometry.c:154-286).
-    The port builds polygons only (count >= 3)."""
+    The port builds polygons only (count >= 3). The arithmetic is float32,
+    operation for operation as the scene compiler csrc/s2native.cpp
+    (`s2n_shape_mass`) computes it, so that a frozen world's masses and
+    inertias equal the JAX package's to the bit."""
+    f = np.float32
     count = geom.count
-    radius = geom.radius
-    verts = geom.verts[:count].astype(np.float64)
-
-    pts = verts.copy()
-    if radius > 0.0:
+    radius = f(geom.radius)
+    density = f(density)
+    pts = geom.verts[:count].astype(f)
+    if radius > 0:
         # push vertices out along the corner bisectors (geometry.c:203-225)
-        normals = geom.normals[:count].astype(np.float64)
+        normals = geom.normals[:count].astype(f)
         out = np.zeros_like(pts)
         for i in range(count):
-            j = count - 1 if i == 0 else i - 1
-            n1, n2 = normals[j], normals[i]
-            mid = n1 + n2
-            mid = mid / max(np.linalg.norm(mid), 1e-12)
-            t1 = np.array([-n1[1], n1[0]])
-            sin_half = mid[0] * t1[1] - mid[1] * t1[0]
-            offset = radius / sin_half if sin_half > 1e-7 else radius
-            out[i] = pts[i] + offset * mid
+            n1, n2 = normals[count - 1 if i == 0 else i - 1], normals[i]
+            mid_x, mid_y = n1[0] + n2[0], n1[1] + n2[1]
+            ml = np.sqrt(mid_x * mid_x + mid_y * mid_y)
+            if ml > f(1e-12):
+                mid_x, mid_y = mid_x / ml, mid_y / ml
+            sin_half = mid_x * n1[0] - mid_y * -n1[1]
+            offset = radius / sin_half if sin_half > f(1.1920929e-07) else radius
+            out[i] = (pts[i][0] + offset * mid_x, pts[i][1] + offset * mid_y)
         pts = out
 
-    center = np.zeros(2)
-    area = 0.0
-    inertia = 0.0
-    r = pts[0]
-    inv3 = 1.0 / 3.0
+    cx = cy = area = inertia = f(0)
+    rx, ry = pts[0]
+    inv3 = f(1) / f(3)
     for i in range(1, count - 1):
-        e1 = pts[i] - r
-        e2 = pts[i + 1] - r
-        D = e1[0] * e2[1] - e1[1] * e2[0]
-        tri_area = 0.5 * D
-        area += tri_area
-        center += tri_area * inv3 * (e1 + e2)
-        intx2 = e1[0] ** 2 + e2[0] * e1[0] + e2[0] ** 2
-        inty2 = e1[1] ** 2 + e2[1] * e1[1] + e2[1] ** 2
-        inertia += (0.25 * inv3 * D) * (intx2 + inty2)
+        e1x, e1y = pts[i][0] - rx, pts[i][1] - ry
+        e2x, e2y = pts[i + 1][0] - rx, pts[i + 1][1] - ry
+        D = e1x * e2y - e1y * e2x
+        tri = f(0.5) * D
+        area += tri
+        cx += tri * inv3 * (e1x + e2x)
+        cy += tri * inv3 * (e1y + e2y)
+        intx2 = e1x * e1x + e2x * e1x + e2x * e2x
+        inty2 = e1y * e1y + e2y * e1y + e2y * e2y
+        inertia += (f(0.25) * inv3 * D) * (intx2 + inty2)
 
     mass = density * area
-    assert area > 1e-12
-    center /= area
-    world_center = r + center
-    inertia = density * inertia + mass * (world_center @ world_center - center @ center)
-    return MassData(mass, world_center, inertia)
+    inv_area = f(1) / area if area > f(1e-12) else f(0)
+    cx, cy = cx * inv_area, cy * inv_area
+    wx, wy = rx + cx, ry + cy
+    inertia *= density
+    inertia += mass * ((wx * wx + wy * wy) - (cx * cx + cy * cy))
+    return MassData(mass, np.array([wx, wy], f), inertia)
 
 
 def compute_aabbs(verts, radius, origin, rot):

@@ -1,9 +1,10 @@
 """The soft contact velocity solve of one constraint set.
 
 Port of the JAX package's `solvers/contact_kernels.py:solve_contact_core` in
-its soft modes: TGS_Soft (reference: src/solve_tgs_soft.c:17-135) and
-PGS_Soft (src/solve_pgs_soft.c:16-125). They differ only in where the
-anchors and the separation come from and in the clamp of the soft bias.
+its soft modes: TGS_Soft (reference: src/solve_tgs_soft.c:17-135), SoftStep
+(src/solve_soft_step.c:66-177) and PGS_Soft (src/solve_pgs_soft.c:16-125).
+They differ only in where the anchors and the separation come from and in
+the clamp of the soft bias.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class SolveMode:
 
 
 PGS_SOFT = SolveMode(False, False, soft_clamp=0.5)
+SOFT_STEP = SolveMode(True, False, soft_clamp=0.5)
 TGS_SOFT = SolveMode(True, True, soft_clamp=1.0)
 
 

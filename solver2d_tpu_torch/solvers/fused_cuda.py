@@ -3,7 +3,8 @@
 `fused_solve` runs the kernel on CUDA tensors and the plain twin
 (`fused_solve.fused_solve_plain`) on CPU tensors; it never falls back from
 one to the other. Replaces the TPU kernel
-`solver2d_tpu/solvers/pallas_solver.py:_kernel` (its TGS_Soft script).
+`solver2d_tpu/solvers/pallas_solver.py:_kernel` in its three scripts
+(`scripts.SCRIPTS`: TGS_Soft, SoftStep, PGS_Soft).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from ..world import K1_BODY_BYTES, K1_SMEM_BYTES
 from .fused_solve import N_CONS_FIELDS, N_JOINT_FIELDS, FusedInputs, fused_solve_plain
+from .scripts import SCRIPTS, Script
 
 _SOURCE = "fused_solve.cu"
 _lib = None
@@ -27,7 +29,7 @@ def load():
 
         lib = ctypes.CDLL(build([_SOURCE])[_SOURCE])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.s2t_fused_solve.argtypes = [p] * 20 + [i] * 9 + [p]
+        lib.s2t_fused_solve.argtypes = [p] * 20 + [i] * 10 + [p]
         lib.s2t_fused_solve.restype = i
         _lib = lib
     return _lib
@@ -44,11 +46,12 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def fused_solve(x: FusedInputs, *, substeps: int, relax: bool, warm_start: bool,
+def fused_solve(x: FusedInputs, *, script: Script, substeps: int, relax: int, warm_start: bool,
                 n_colors: int, n_joint_colors: int):
-    """The TGS_Soft solve of W worlds (layouts in `fused_solve.FusedInputs`).
-    Returns (bs [W, B, 8], n_imp [W, C, 2], t_imp [W, C, 2], jimp [W, J, 5])."""
-    static = dict(substeps=substeps, relax=relax, warm_start=warm_start,
+    """The solve of W worlds in `script` (layouts in
+    `fused_solve.FusedInputs`, arguments as `fused_solve_plain`'s). Returns
+    (bs [W, B, 8], n_imp [W, C, 2], t_imp [W, C, 2], jimp [W, J, 5])."""
+    static = dict(script=script, substeps=substeps, relax=relax, warm_start=warm_start,
                   n_colors=n_colors, n_joint_colors=n_joint_colors)
     dev = x.bs.device
     if dev.type == "cpu":
@@ -71,6 +74,10 @@ def fused_solve(x: FusedInputs, *, substeps: int, relax: bool, warm_start: bool,
         raise ValueError(f"fused_solve: {B} bodies exceed the kernel's shared memory")
     if max(n_colors, n_joint_colors) > 30:
         raise ValueError("fused_solve: at most 30 colors")
+    if script not in SCRIPTS:
+        raise ValueError(f"fused_solve: the kernel is not built for the script {script}")
+    if script.loop == "substep" and relax not in (0, 1):
+        raise ValueError(f"fused_solve: the substep loop relaxes once a substep or not at all, not {relax} times")
     lib = load()
     bs = torch.empty_like(x.bs)
     n_imp = torch.empty_like(x.n_imp)
@@ -86,7 +93,7 @@ def fused_solve(x: FusedInputs, *, substeps: int, relax: bool, warm_start: bool,
         x.j_ent.data_ptr(), x.scal.data_ptr(),
         bs.data_ptr(), n_imp.data_ptr(), t_imp.data_ptr(), jimp.data_ptr(),
         cdelta.data_ptr(), jdelta.data_ptr(),
-        W, B, C, J, n_colors, n_joint_colors, substeps, int(relax), int(warm_start), stream,
+        W, B, C, J, n_colors, n_joint_colors, SCRIPTS.index(script), substeps, int(relax), int(warm_start), stream,
     )
     if rc != 0:
         raise RuntimeError(f"K1 fused solve launch failed: cudaError {rc}")

@@ -1,12 +1,21 @@
-"""The fused soft solve of the per-world step: its packed inputs and its
-plain PyTorch twin.
+"""The fused soft solve of the per-world step: its packed inputs, its
+scripts and its plain PyTorch twin.
 
 Port of the JAX package's `solvers/pallas_solver.py` (the TPU kernel K1 and
-its `fused_solve` wrapper) for the TGS_Soft script (reference:
-src/solve_tgs_soft.c:138-280). One world's whole solve runs on its own body
-state: per substep integrate velocities, warm start joints and then
-contacts, one colored pass over the soft revolute and mouse joints and one
-over the contacts, integrate positions, then one relax pass of each.
+its `fused_solve` wrapper). One world's whole solve runs on its own body
+state, in one of three scripts (`scripts.Script`):
+
+- TGS_Soft (reference: src/solve_tgs_soft.c:138-280), the substep loop: per
+  substep integrate velocities, warm start joints and then contacts (at the
+  anchors rotated to the current rotation), one colored pass over the soft
+  revolute and mouse joints and one over the contacts, integrate positions,
+  then one relax pass of each;
+- SoftStep (src/solve_soft_step.c:182-311): the same loop, with the contact
+  warm start at the prepare-time anchors and the SOFT_STEP contact solve;
+- PGS_Soft (src/solve_pgs_soft.c:127-242), the PGS loop: integrate
+  velocities once, warm start contacts and then joints, `substeps` biased
+  passes (joints, then contacts), integrate positions, then `relax` relax
+  passes.
 
 `fused_inputs` packs what the kernel reads (the columns of
 `pack_cons_fields` and `pack_joint_fields` are the TPU kernel's), and
@@ -20,7 +29,14 @@ products, selects instead of masked blends `x + m * (y - x)`, and warm-start
 sums in a fixed order: each body adds its contacts' deltas in the order of
 the JAX package's scatter-add over [body_a; body_b] and its joints' deltas
 in color order, as the JAX package's colored joint warm start does
-(`warm_plan`).
+(`_plan`).
+
+A mouse joint never writes its body A (the prepare zeroes A's masses), but
+its pivot velocity reads A's velocity as the JAX package's
+`joints.solve_joint_core` does. The joint coloring gives every colored
+joint its (body, color) cell at both dynamic endpoints, mouse joints
+included, so no other joint of its color writes a dynamic body A while the
+mouse joint reads it.
 """
 
 from __future__ import annotations
@@ -33,6 +49,7 @@ from ..ops import math2d as m
 from . import contact_kernels as ck
 from . import joints as jk
 from .common import ContactCons, pack_body_state, unpack_body_state
+from .scripts import Script
 
 I32 = torch.int32
 N_CONS_FIELDS = 37
@@ -220,11 +237,13 @@ def _write_rows(bs, idx, upd, v, w):
     return ext[:, :B]
 
 
-def fused_solve_plain(x: FusedInputs, *, substeps: int, relax: bool, warm_start: bool,
+def fused_solve_plain(x: FusedInputs, *, script: Script, substeps: int, relax: int, warm_start: bool,
                       n_colors: int, n_joint_colors: int):
-    """The plain PyTorch twin of K1 (csrc/fused_solve.cu): the TGS_Soft
-    script on every world. Returns (bs [W, B, 8], n_imp, t_imp [W, C, 2],
-    jimp [W, J, 5])."""
+    """The plain PyTorch twin of K1 (csrc/fused_solve.cu): `script` on every
+    world, with `substeps` substeps (the substep loop) or velocity passes
+    (the PGS loop), and `relax` relax passes (a substep's, or the PGS loop's
+    after its position integrate). Returns (bs [W, B, 8], n_imp, t_imp
+    [W, C, 2], jimp [W, J, 5])."""
     W, B = x.bs.shape[:2]
     dev = x.bs.device
     worlds = torch.arange(W, device=dev)[:, None]
@@ -274,13 +293,18 @@ def fused_solve_plain(x: FusedInputs, *, substeps: int, relax: bool, warm_start:
         return _apply_plan(bs, torch.cat([dA, dB], dim=1), *j_table)
 
     def contact_warm(bs, n_imp, t_imp):
-        _, _, _, qA = rows(bs, ia)
-        _, _, _, qB = rows(bs, ib)
+        if script.fixed_warm:
+            rA, rB = cons.r_a0, cons.r_b0
+        else:
+            _, _, _, qA = rows(bs, ia)
+            _, _, _, qB = rows(bs, ib)
+            rA = m.rotate(qA[..., None, :], cons.local_anchor_a)
+            rB = m.rotate(qB[..., None, :], cons.local_anchor_b)
         tangent = m.right_perp(cons.normal)
         P = n_imp[..., None] * cons.normal[..., None, :] + t_imp[..., None] * tangent[..., None, :]
         P = torch.where(cons.pmask[..., None], P, 0.0)
-        tq_a = m.cross(m.rotate(qA[..., None, :], cons.local_anchor_a), P)
-        tq_b = m.cross(m.rotate(qB[..., None, :], cons.local_anchor_b), P)
+        tq_a = m.cross(rA, P)
+        tq_b = m.cross(rB, P)
         P_tot = P[..., 0, :] + P[..., 1, :]
         dA = torch.cat([-cons.inv_mass_a[..., None] * P_tot, (-cons.inv_i_a * (tq_a[..., 0] + tq_a[..., 1]))[..., None]], -1)
         dB = torch.cat([cons.inv_mass_b[..., None] * P_tot, (cons.inv_i_b * (tq_b[..., 0] + tq_b[..., 1]))[..., None]], -1)
@@ -306,7 +330,7 @@ def fused_solve_plain(x: FusedInputs, *, substeps: int, relax: bool, warm_start:
             vA, wA, dcA, qA = rows(bs, ia)
             vB, wB, dcB, qB = rows(bs, ib)
             vA2, wA2, vB2, wB2, n2, t2 = ck.solve_contact_core(
-                cons, vA, wA, vB, wB, qA, qB, dcA, dcB, n_imp, t_imp, ck.TGS_SOFT, inv_h, use_bias
+                cons, vA, wA, vB, wB, qA, qB, dcA, dcB, n_imp, t_imp, script.mode, inv_h, use_bias
             )
             upd = (color == k) & cons.active & cwin
             bs = _write_rows(bs, ia, upd & cwa, vA2, wA2)
@@ -315,16 +339,33 @@ def fused_solve_plain(x: FusedInputs, *, substeps: int, relax: bool, warm_start:
             t_imp = torch.where(upd[..., None], t2, t_imp)
         return bs, n_imp, t_imp
 
+    def relax_pass(bs, n_imp, t_imp, jimp):
+        bs, jimp = joint_colors(bs, jimp, False, False)
+        bs, n_imp, t_imp = contact_colors(bs, n_imp, t_imp, False)
+        return bs, n_imp, t_imp, jimp
+
     bs, n_imp, t_imp, jimp = x.bs, x.n_imp, x.t_imp, x.jimp
+    if script.loop == "substep":
+        for _ in range(substeps):
+            bs = integrate_velocities(bs)
+            if warm_start:
+                bs = joint_warm(bs, jimp)
+                bs = contact_warm(bs, n_imp, t_imp)
+            bs, jimp = joint_colors(bs, jimp, True, True)
+            bs, n_imp, t_imp = contact_colors(bs, n_imp, t_imp, True)
+            bs = integrate_positions(bs)
+            if relax:
+                bs, n_imp, t_imp, jimp = relax_pass(bs, n_imp, t_imp, jimp)
+        return bs, n_imp, t_imp, jimp
+    # the PGS loop warms contacts before joints
+    bs = integrate_velocities(bs)
+    if warm_start:
+        bs = contact_warm(bs, n_imp, t_imp)
+        bs = joint_warm(bs, jimp)
     for _ in range(substeps):
-        bs = integrate_velocities(bs)
-        if warm_start:
-            bs = joint_warm(bs, jimp)
-            bs = contact_warm(bs, n_imp, t_imp)
         bs, jimp = joint_colors(bs, jimp, True, True)
         bs, n_imp, t_imp = contact_colors(bs, n_imp, t_imp, True)
-        bs = integrate_positions(bs)
-        if relax:
-            bs, jimp = joint_colors(bs, jimp, False, False)
-            bs, n_imp, t_imp = contact_colors(bs, n_imp, t_imp, False)
+    bs = integrate_positions(bs)
+    for _ in range(relax):
+        bs, n_imp, t_imp, jimp = relax_pass(bs, n_imp, t_imp, jimp)
     return bs, n_imp, t_imp, jimp

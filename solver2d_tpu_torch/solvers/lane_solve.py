@@ -10,7 +10,8 @@ constraint and counted in its `mismatch`.
 
 Body state lanes: [vx, vy, w, dpx, dpy, rot_s, rot_c, pad].
 Reference scripts: solve_tgs_soft.c:138-280 (TGS_Soft),
-solve_pgs_soft.c:127-242 (PGS_Soft).
+solve_soft_step.c:182-311 (SoftStep: TGS_Soft's substeps with the
+prepare-time anchors), solve_pgs_soft.c:127-242 (PGS_Soft).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import CONTACT_HERTZ, SimConfig, SolverType
+from ..config import CONTACT_HERTZ, SimConfig
 from ..ops import coloring
 from ..ops import math2d as m
 from . import contact_kernels as ck
@@ -33,6 +34,7 @@ from .common import (
     prepare_contacts,
     unpack_body_state,
 )
+from .scripts import SOLVER_SCRIPTS, step_size
 
 I32 = torch.int32
 
@@ -153,16 +155,22 @@ def _scatter_add_planned(target, vals, table):
     return out
 
 
-def _lane_warm_start(bs, cons, n_imp, t_imp, struct: LaneStructure, plan):
+def _lane_warm_start(bs, cons, n_imp, t_imp, struct: LaneStructure, plan, fixed_anchors: bool):
     """Apply the warm-start impulses of both endpoints (reference:
-    src/solve_common.c:276-326) with the ordered scatter `plan` over
+    src/solve_common.c:276-326; at the prepare-time anchors,
+    solve_soft_step.c:16-63) with the ordered scatter `plan` over
     cat([ia, ib])."""
+    if fixed_anchors:
+        rA, rB = cons.r_a0, cons.r_b0
+    else:
+        rA = _rot_anchor(bs, struct.ia, cons.local_anchor_a)
+        rB = _rot_anchor(bs, struct.ib, cons.local_anchor_b)
     tangent = m.right_perp(cons.normal)
     P = n_imp[..., None] * cons.normal[..., None, :] + t_imp[..., None] * tangent[..., None, :]
     P = torch.where(cons.pmask[..., None], P, 0.0)
     P_tot = P.sum(dim=-2)
-    torque_a = m.cross(_rot_anchor(bs, struct.ia, cons.local_anchor_a), P).sum(dim=-1)
-    torque_b = m.cross(_rot_anchor(bs, struct.ib, cons.local_anchor_b), P).sum(dim=-1)
+    torque_a = m.cross(rA, P).sum(dim=-1)
+    torque_b = m.cross(rB, P).sum(dim=-1)
     z2 = torch.zeros_like(P_tot)
     z1 = torch.zeros_like(torque_a[..., None])
     dA = torch.cat([-cons.inv_mass_a[..., None] * P_tot, (-cons.inv_i_a * torque_a)[..., None], z2, z2, z1], dim=-1)
@@ -225,22 +233,11 @@ def lane_solve(bodies, contacts, struct: LaneStructure, gravity, dt, cfg: SimCon
     gravity is world 0's; dt a 0-dim float32 tensor. Returns (bodies',
     contacts', mismatch [W]): each world's touching contacts the shared
     structure did not cover (0 on lockstep batches)."""
-    dev = dt.device
-    f32 = torch.float32
-    if cfg.solver == SolverType.TGS_SOFT:
-        h = dt / torch.tensor(float(cfg.iterations), dtype=f32, device=dev)
-        safe_dt = torch.where(dt > 0, dt, torch.ones_like(dt))
-        inv_h = torch.where(dt > 0, torch.tensor(float(cfg.iterations), dtype=f32, device=dev) / safe_dt, 0.0)
-        hertz = torch.clamp(0.25 * inv_h, max=CONTACT_HERTZ)
-        mode = ck.TGS_SOFT
-    elif cfg.solver == SolverType.PGS_SOFT:
-        h = dt
-        safe_dt = torch.where(dt > 0, dt, torch.ones_like(dt))
-        inv_h = torch.where(dt > 0, torch.ones_like(dt) / safe_dt, 0.0)
-        hertz = torch.clamp(0.333 * inv_h, max=CONTACT_HERTZ)
-        mode = ck.PGS_SOFT
-    else:
-        raise ValueError(f"lane_solve runs TGS_SOFT and PGS_SOFT, not {cfg.solver.name}")
+    if cfg.solver not in SOLVER_SCRIPTS:
+        raise ValueError(f"lane_solve runs TGS_SOFT, SOFT_STEP and PGS_SOFT, not {cfg.solver.name}")
+    script = SOLVER_SCRIPTS[cfg.solver]
+    h, inv_h = step_size(script, dt, cfg.iterations)
+    hertz = torch.clamp(script.contact_hertz * inv_h, max=CONTACT_HERTZ)
 
     lc = bodies.map(_t2)  # per-body constants, [B, W]
     bs = pack_body_state(lc.v, lc.w, lc.delta_pos, lc.rot)  # [B, W, 8]
@@ -270,14 +267,14 @@ def lane_solve(bodies, contacts, struct: LaneStructure, gravity, dt, cfg: SimCon
         return torch.cat([bs[..., 0:3], dp, rot, bs[..., 7:8]], dim=-1)
 
     def sweep(bs, n, t, use_bias):
-        return _lane_gs_sweep(bs, n, t, cons, struct, cfg, mode, inv_h, use_bias)
+        return _lane_gs_sweep(bs, n, t, cons, struct, cfg, script.mode, inv_h, use_bias)
 
-    if cfg.solver == SolverType.TGS_SOFT:
-        # substep script (solve_tgs_soft.c:138-280)
+    if script.loop == "substep":
+        # substep script (solve_tgs_soft.c:138-280, solve_soft_step.c:182-311)
         for _ in range(cfg.iterations):
             bs = integrate_v(bs)
             if cfg.warm_start:
-                bs = _lane_warm_start(bs, cons, n_imp, t_imp, struct, plan)
+                bs = _lane_warm_start(bs, cons, n_imp, t_imp, struct, plan, script.fixed_warm)
             bs, n_imp, t_imp = sweep(bs, n_imp, t_imp, True)
             bs = integrate_p(bs)
             if cfg.extra_iterations > 0:
@@ -286,7 +283,7 @@ def lane_solve(bodies, contacts, struct: LaneStructure, gravity, dt, cfg: SimCon
         # PGS_Soft script (solve_pgs_soft.c:127-242)
         bs = integrate_v(bs)
         if cfg.warm_start:
-            bs = _lane_warm_start(bs, cons, n_imp, t_imp, struct, plan)
+            bs = _lane_warm_start(bs, cons, n_imp, t_imp, struct, plan, script.fixed_warm)
         for _ in range(cfg.iterations):
             bs, n_imp, t_imp = sweep(bs, n_imp, t_imp, True)
         bs = integrate_p(bs)

@@ -21,8 +21,9 @@ incremental coloring, no buckets) vmapped over worlds (`parallel.batch`):
 each world has its own pairs (`find_pairs_grid`, `match_contacts`), its
 narrowphase through K2 with the worlds flattened into one lane batch
 (`update_manifolds`), its own contact and joint colors and body maps, and
-the TGS_Soft solve of contacts and soft revolute and mouse joints in one
-launch of K1 (`solvers/loops.solve_prepared`).
+the soft solve of contacts and soft revolute and mouse joints in one
+launch of K1 (`solvers/loops.solve_prepared`), in the script of
+`config.solver`: TGS_Soft, SoftStep or PGS_Soft.
 """
 
 from __future__ import annotations

@@ -168,11 +168,7 @@ class World:
 
     def create_mouse_joint(self, body_a: int, body_b: int, target, hertz: float, damping_ratio: float) -> int:
         """body_b is dragged toward target (reference: src/joint.c:154-179).
-        body_a must not be dynamic: the joint reads body A's velocity but
-        never writes it or claims it in the body map, so a solver pass may
-        write a dynamic body A while the joint reads it."""
-        if self.bodies[body_a].def_.type == BodyType.DYNAMIC:
-            raise ValueError(f"mouse joint: body A ({body_a}) is dynamic; attach the joint to a static or kinematic body")
+        The joint never moves body A, which may be of any type."""
         target = np.asarray(target, np.float64)
         self.joints.append(_Joint(
             1, body_a, body_b, self.get_local_point(body_a, target), self.get_local_point(body_b, target),
@@ -182,30 +178,32 @@ class World:
 
     def _compute_mass(self, body_idx: int):
         """reference: src/body.c:152-218, with the center-of-mass velocity
-        fixup of :215-217."""
+        fixup of :215-217. float32, accumulated as the scene compiler
+        csrc/s2native.cpp (`s2n_compile_scene`) accumulates it."""
+        f = np.float32
         b = self.bodies[body_idx]
-        b.mass = 0.0
-        b.inertia = 0.0
         old_center_offset = b.local_center.copy()
+        b.mass = b.inertia = 0.0
         b.local_center = np.zeros(2)
         if b.def_.type != BodyType.DYNAMIC:
             return
-        local_center = np.zeros(2)
+        mass = inertia = cx = cy = f(0)
         for si in b.shapes:
             s = self.shapes[si]
-            if s.def_.density == 0.0:
+            if f(s.def_.density) == 0:
                 continue
             md = geometry.compute_mass(s.geom, s.def_.density)
-            b.mass += md.mass
-            local_center += md.mass * md.center
-            b.inertia += md.inertia
-        if b.mass > 0.0:
-            local_center /= b.mass
-        if b.inertia > 0.0:
-            b.inertia -= b.mass * (local_center @ local_center)
-        else:
-            b.inertia = 0.0
-        b.local_center = local_center
+            mass += md.mass
+            cx += md.mass * md.center[0]
+            cy += md.mass * md.center[1]
+            inertia += md.inertia
+        if mass > 0:
+            inv_mass = f(1) / mass
+            cx, cy = cx * inv_mass, cy * inv_mass
+        inertia -= mass * (cx * cx + cy * cy)
+        b.mass = float(mass)
+        b.inertia = float(inertia) if inertia > 0 else 0.0
+        b.local_center = local_center = np.array([cx, cy], np.float64)
         rot = _rot_of(b.def_.angle)
         delta_center = _rotate(rot, local_center - old_center_offset)
         w = b.def_.angular_velocity

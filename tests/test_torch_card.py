@@ -1,5 +1,6 @@
 """The port's kernels against their plain twins on the card: K2
-(solver2d_tpu_torch/csrc/narrow.cu) and K1 (csrc/fused_solve.cu).
+(solver2d_tpu_torch/csrc/narrow.cu) and K1 (csrc/fused_solve.cu) in each of
+its scripts.
 
 Needs a CUDA card and nvcc; skips without them. It imports neither jax nor
 the JAX package, so it also runs on a machine without JAX, where
@@ -108,20 +109,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
 # ------------------------------------------------------------ K1
 
 
-def _k1_inputs(scene, W, dev, steps=2):
+def _k1_inputs(scene, W, dev, steps=2, solver="TGS_SOFT"):
     """The fused solve's inputs after `steps` steps of W worlds of a small
-    scene of the per-world path, the worlds' velocities jittered apart."""
+    scene of the per-world path under `solver`, the worlds' velocities
+    jittered apart. The Bridge's mouse joint is held from the ground, or
+    from plank 11, a dynamic body ("bridge_dyn_a")."""
     from solver2d_tpu_torch import SolverType, batched_step, bridge, pyramid_world, replicate
     from solver2d_tpu_torch.solvers.loops import fused_static
     from solver2d_tpu_torch.step import prepare
 
     if scene == "pyramid":
-        world, _ = pyramid_world(SolverType.TGS_SOFT, 8)
+        world, _ = pyramid_world(SolverType[solver], 8)
         kw = dict(max_colors=10, gjk_iters=10)
     else:
-        world, planks = bridge(SolverType.TGS_SOFT, 24)
+        world, planks = bridge(SolverType[solver], 24)
         x, y = world.bodies[planks[12]].def_.position
-        world.create_mouse_joint(0, planks[12], (x + 0.5, y + 2.0), 5.0, 0.7)
+        body_a = 0 if scene == "bridge" else planks[11]
+        world.create_mouse_joint(body_a, planks[12], (x + 0.5, y + 2.0), 5.0, 0.7)
         kw = dict(max_colors=8)
     state, cfg = world.freeze(device=dev, lane_solve=False, **kw)
     batch = replicate(state, W)
@@ -136,12 +140,14 @@ def _k1_inputs(scene, W, dev, steps=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", ["pyramid", "bridge"])
-def test_k1_matches_twin(card, scene):
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "SOFT_STEP", "PGS_SOFT"])
+@pytest.mark.parametrize("scene", ["pyramid", "bridge", "bridge_dyn_a"])
+def test_k1_matches_twin(card, scene, solver):
+    """K1 rounds as its twin does: equal outputs."""
     from solver2d_tpu_torch.solvers import fused_cuda
     from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
 
-    x, static = _k1_inputs(scene, 8, card)
+    x, static = _k1_inputs(scene, 8, card, solver=solver)
     before = fused_cuda.fused_solve.launches
     got = fused_cuda.fused_solve(x, **static)
     want = fused_solve_plain(x, **static)
@@ -149,7 +155,7 @@ def test_k1_matches_twin(card, scene):
     assert fused_cuda.fused_solve.launches == before + 1
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
-        assert float((g - w).abs().max()) <= 1e-5
+        assert torch.equal(g, w)
     assert not torch.equal(got[0][0], got[0][1])  # the worlds differ
 
 
@@ -164,3 +170,9 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(card):
         fused_cuda.fused_solve(x._replace(cint=x.cint.cpu()), **static)
     with pytest.raises(ValueError):
         fused_cuda.fused_solve(x._replace(jfields=x.jfields.transpose(1, 2).contiguous().transpose(1, 2)), **static)
+    # a script the kernel is not built for, and a substep loop relaxing twice
+    script = static["script"]
+    with pytest.raises(ValueError):
+        fused_cuda.fused_solve(x, **{**static, "script": script._replace(fixed_warm=not script.fixed_warm)})
+    with pytest.raises(ValueError):
+        fused_cuda.fused_solve(x, **{**static, "relax": 2})

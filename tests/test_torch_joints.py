@@ -119,13 +119,20 @@ def test_store_impulses_keeps_live_joints():
 
 
 def test_mouse_joint_body_a_must_not_be_dynamic():
-    """K1 reads a mouse joint's body A without owning it in the body map,
-    so the world refuses a dynamic body A; a static one is accepted."""
+    """The port's world takes a mouse joint on a body A of any type, as the
+    JAX package's does: no type is refused (the solve never moves A), and
+    the joint's anchors are the JAX world's."""
+    from solver2d_tpu.config import SolverType as JSolver
+    from solver2d_tpu.models.joint_scenes import bridge as jax_bridge
     from solver2d_tpu_torch import SolverType, bridge
 
     world, planks = bridge(SolverType.TGS_SOFT, 4)
+    jworld = jax_bridge(JSolver.TGS_SOFT, 4).world
     x, y = world.bodies[planks[1]].def_.position
-    with pytest.raises(ValueError, match="dynamic"):
-        world.create_mouse_joint(planks[0], planks[1], (x, y + 1.0), 5.0, 0.7)
-    n = len(world.joints)
-    assert world.create_mouse_joint(0, planks[1], (x, y + 1.0), 5.0, 0.7) == n
+    for a in (0, planks[0]):
+        n = len(world.joints)
+        assert world.create_mouse_joint(a, planks[1], (x, y + 1.0), 5.0, 0.7) == n
+        jworld.create_mouse_joint(a, planks[1], (x, y + 1.0), 5.0, 0.7)
+        for name in ("body_a", "body_b", "local_anchor_a", "local_anchor_b", "target"):
+            np.testing.assert_allclose(getattr(world.joints[n], name), getattr(jworld.joints[n], name), err_msg=name)
+    assert world.bodies[planks[0]].def_.type == 2

@@ -25,6 +25,7 @@ torch.set_num_threads(1)
 W = 2
 CONFIGS = {
     "TGS_SOFT": dict(iterations=4, extra_iterations=2, gjk_iters=10, max_colors=9, contact_bucket_cap=-1),
+    "SOFT_STEP": dict(iterations=4, extra_iterations=2, gjk_iters=10, max_colors=9, contact_bucket_cap=-1),
     "PGS_SOFT": dict(iterations=1, extra_iterations=1, gjk_iters=4, max_colors=4, contact_bucket_cap=-1),
 }
 
@@ -52,7 +53,7 @@ def _inputs(solver):
     return bodies, contacts, b.gravity, pcfg, jstate, jcfg
 
 
-@pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_SOFT"])
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "SOFT_STEP", "PGS_SOFT"])
 def test_lane_solve_matches_jax(solver):
     bodies, contacts, gravity, pcfg, jstate, jcfg = _inputs(solver)
     jbatch = replicate_state(jstate, W)

@@ -1,5 +1,5 @@
 """Port state and scene construction (solver2d_tpu_torch.world/state) vs the
-JAX package: the frozen pyramid, leaf by leaf."""
+JAX package: the frozen pyramid and Bridge, leaf by leaf and bit for bit."""
 
 import dataclasses
 
@@ -9,18 +9,20 @@ import torch
 
 from solver2d_tpu.config import SolverType as JSolver
 from solver2d_tpu.models.contact_scenes import pyramid_world as jax_pyramid
+from solver2d_tpu.models.joint_scenes import bridge as jax_bridge
 from solver2d_tpu.parallel import replicate_state
-from solver2d_tpu_torch import SolverType, pyramid_world, replicate, state_from_numpy, to_numpy
-from torch_parity import assert_tree_close, np_tree
+from solver2d_tpu_torch import SolverType, bridge, pyramid_world, replicate, state_from_numpy, to_numpy
+from torch_parity import WORLD_KW, assert_tree_close, np_tree
 
 torch.set_num_threads(1)
 
-# the JAX freeze computes masses in float32 (native scene compiler), the
-# port in float64 before rounding: a few ulps apart
-MASS_TOL = dict(rtol=1e-5, atol=1e-6)
+# masses and inertias are float32 on both sides, operation for operation
+# (the JAX freeze's native scene compiler, csrc/s2native.cpp): every leaf
+# is equal
+EXACT = dict(rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("base", [3, 8])
+@pytest.mark.parametrize("base", [3, 8, 20])
 @pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_SOFT"])
 def test_freeze_matches_jax(base, solver):
     kw = dict(contact_bucket_cap=-1)
@@ -30,7 +32,17 @@ def test_freeze_matches_jax(base, solver):
     pstate, pcfg = pyramid_world(SolverType[solver], base)[0].freeze(device="cpu", **kw)
     for f in dataclasses.fields(pcfg):
         assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
-    assert_tree_close(to_numpy(pstate), np_tree(jstate), MASS_TOL)
+    assert_tree_close(to_numpy(pstate), np_tree(jstate), EXACT)
+
+
+@pytest.mark.parametrize("solver", ["SOFT_STEP", "PGS_SOFT"])
+def test_freeze_bridge_matches_jax(solver):
+    """The 160-plank Bridge, frozen for the per-world step."""
+    jstate, _ = jax_bridge(JSolver[solver]).world.freeze(narrowphase="lanes", **WORLD_KW)
+    pstate, _ = bridge(SolverType[solver])[0].freeze(device="cpu", lane_solve=False, **WORLD_KW)
+    got = to_numpy(pstate)
+    assert_tree_close(got, np_tree(jstate), EXACT)
+    assert (got["bodies"]["inv_inertia"] > 0).sum() == 160
 
 
 def test_state_round_trip_and_replicate():

@@ -1,13 +1,63 @@
 """Helpers of the port's parity tests (tests/test_torch_*.py): carry JAX
 values to the port as numpy arrays and compare trees of outputs.
 
-JAX runs op by op (`jax.disable_jit()`) in these tests: tracing and
+JAX runs op by op (`jax.disable_jit()`) in most of these tests: tracing and
 compiling the unrolled step programs costs minutes on the CPU, while the
-eager ops of a base-3 scene take seconds.
+eager ops of a base-3 scene take seconds (tests/test_torch_step.py says
+why the lane step runs in JAX's default eager mode). Each op of a new shape still
+compiles once per process (about 30 ms, a thousand of them in a lane step).
+`port_compile_cache` keeps every such compile, however short, in a
+persistent cache of the port's tests' own, so that their test processes
+share them; the root conftest.py enters it around each port test.
 """
+
+import contextlib
+import os
+import tempfile
 
 import numpy as np
 import jax
+
+# under the temporary directory of the process, apart from the cache that
+# tests/conftest.py gives the JAX package's own tests
+PORT_CACHE_DIR = os.path.join(tempfile.gettempdir(), "solver2d_tpu_torch_jaxcache")
+
+
+@contextlib.contextmanager
+def port_compile_cache():
+    """Point JAX's persistent compilation cache at PORT_CACHE_DIR and keep
+    every compile in it; on exit restore the settings as they were."""
+    from jax._src import compilation_cache
+
+    settings = {
+        "jax_compilation_cache_dir": PORT_CACHE_DIR,
+        "jax_persistent_cache_min_compile_time_secs": 0.0,
+    }
+    before = {k: jax.config.values[k] for k in settings}
+    for k, v in settings.items():
+        jax.config.update(k, v)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
+
+
+@contextlib.contextmanager
+def cheap_compiles():
+    """Compile JAX's ops without XLA's expensive optimizations (LLVM at -O0):
+    about a third less time a compile, the same arithmetic. On exit drop
+    every executable the process holds, so that no later test runs one
+    compiled so."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", False)
+        jax.clear_caches()
+
 
 # float32 round-off: both sides compute the same operations in the same
 # order, so values agree to a few ulps
@@ -72,11 +122,14 @@ DT = 1.0 / 60.0
 # differ by at most 1.5e-7 (joint impulses; velocities 7.5e-8, rotations
 # 7.5e-9) over 3 steps.
 WORLD_TOL = {"pyramid": dict(rtol=0, atol=0), "bridge": dict(rtol=0, atol=1e-6)}
+WORLD_TOL["bridge_dyn_a"] = WORLD_TOL["bridge"]
 
 
 def jax_world_scene(name: str):
-    """(state, config) of the JAX package: the base-3 pyramid, or the
-    4-plank Bridge with a mouse joint dragging plank 2."""
+    """(state, config) of the JAX package: the base-3 pyramid; the 4-plank
+    Bridge with a mouse joint dragging plank 2 from the ground ("bridge");
+    or the same Bridge with a mouse joint whose body A is plank 1, a
+    dynamic body, dragging plank 3 ("bridge_dyn_a")."""
     from solver2d_tpu.config import SolverType
     from solver2d_tpu.models.contact_scenes import pyramid_world
     from solver2d_tpu.models.joint_scenes import bridge
@@ -88,8 +141,9 @@ def jax_world_scene(name: str):
         kw = dict(solve_joints=False)
     else:
         w = bridge(SolverType.TGS_SOFT, 4).world
-        p = w.body_position(2)
-        w.create_mouse_joint(0, 2, (p[0] + 0.3, p[1] + 1.0), 5.0, 0.7)
+        a, b = (0, 2) if name == "bridge" else (1, 3)
+        p = w.body_position(b)
+        w.create_mouse_joint(a, b, (p[0] + 0.3, p[1] + 1.0), 5.0, 0.7)
         # no contacts; a joint has at most 3 neighbours: 4 colors do
         kw = dict(max_colors=4, joint_max_colors=4)
     return w.freeze(solver=SolverType.TGS_SOFT, narrowphase="lanes", **WORLD_KW, **kw)

@@ -12,10 +12,12 @@ the configurations of `chip_smoke.py`:
 - bridge: the 160-plank Bridge (161 revolute joints, 8 colors): the largest
   joint separation (`joint_error`).
 
-Prints both after every step, and the largest position difference between
-the two. The JAX figures set chip_smoke's MAX_DRIFT_B and MAX_JOINT_ERROR_A.
+Both run the solver given (TGS_SOFT by default, SOFT_STEP or PGS_SOFT: the
+fused solvers of the per-world step). Prints both after every step, and the
+largest position difference between the two. The JAX figures, doubled, set
+chip_smoke's MAX_DRIFT_B and MAX_JOINT_ERROR_A of each solver.
 
-Usage: python tools/jax_world_bounds.py pyramid|bridge [steps]
+Usage: python tools/jax_world_bounds.py pyramid|bridge [steps] [solver]
 """
 
 import os
@@ -40,14 +42,14 @@ import solver2d_tpu_torch as port  # noqa: E402
 from solver2d_tpu_torch.utils.metrics import joint_error as port_joint_error  # noqa: E402
 
 
-def main(scene: str = "pyramid", steps: int = 23):
+def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT"):
     if scene == "pyramid":
         w, _ = pyramid_world(SolverType.TGS_SOFT, 20)
         kw = dict(max_contacts=896, max_colors=10, gjk_iters=10)
     else:
         w = bridge(SolverType.TGS_SOFT).world
         kw = dict(max_colors=8)
-    state, cfg = w.freeze(solver=SolverType.TGS_SOFT, narrowphase="lanes", **kw)
+    state, cfg = w.freeze(solver=SolverType[solver], narrowphase="lanes", **kw)
     pcfg = port.SimConfig(**{k: getattr(cfg, k) for k in port.SimConfig.__dataclass_fields__ if hasattr(cfg, k)})
     pcfg = pcfg.replace(lane_solve=False)
     pstep = port.batched_step(pcfg)
@@ -68,11 +70,12 @@ def main(scene: str = "pyramid", steps: int = 23):
             m = float(joint_error(state))
             pm = float(port_joint_error(pbatch)[0])
             what = "joint_error"
-        print(f"{scene} step {i + 1}: {what} JAX {m:.6f}, port {pm:.6f}; largest position difference "
+        print(f"{scene} {solver} step {i + 1}: {what} JAX {m:.6f}, port {pm:.6f}; largest position difference "
               f"{np.abs(pos - ppos).max():.3e}; color_overflow JAX {int(state.diag.color_overflow)}, "
               f"port {int(pbatch.diag.color_overflow[0])}", flush=True)
 
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    main(sys.argv[1] if len(sys.argv) > 1 else "pyramid", int(sys.argv[2]) if len(sys.argv) > 2 else 23)
+    main(sys.argv[1] if len(sys.argv) > 1 else "pyramid", int(sys.argv[2]) if len(sys.argv) > 2 else 23,
+         sys.argv[3] if len(sys.argv) > 3 else "TGS_SOFT")
