@@ -16,7 +16,14 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    of 32 Bridges (161 bodies, 161 revolute joints) with a mouse joint on
    plank 80 held from the ground, and of 32 Bridges whose mouse joint's
    body A is plank 79, a dynamic body. Integer outputs must be equal, K2's
-   floats within K2_ATOL, K1's equal (K1_ATOL = 0);
+   floats within K2_ATOL, K1's equal (K1_ATOL = 0). Each kernel's
+   registers, shared memory and resident blocks an SM are printed, K2's
+   share of SAT slots, of warps that mix SAT with the other paths and its
+   GJK trips on the lane scene, K2's time and bound also at the flattened
+   shapes of paths (b) and (a), and K1's barrier count and time a barrier.
+   A kernel's time is that of its launches replayed back to back from a
+   CUDA graph (`kernel_ms`), printed beside the time a call by CUDA
+   events, which also holds the wrapper's host work;
 4. the lane path: `step_batch` on 512 worlds x 1954 bodies at the bench
    configuration (TGS_Soft, 4 substeps + relax, 9 colors, bucket cap 896,
    GJK 10), WARMUP + STEPS steps with every launch counter reset first;
@@ -130,6 +137,43 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20):
+    """ms a call of fn's launches replayed back to back from a CUDA graph
+    (no host work between them), by CUDA events around the replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def kernel_ms(fn, reps=20):
+    """(kernel ms, ms a call): the time a call of fn's kernel launches
+    replayed back to back from a CUDA graph (`graph_ms`), and the time a
+    call by CUDA events around back-to-back calls, which also holds the
+    wrapper's host work (its checks and allocations). When a kernel takes
+    less than that host work, the second times the host, not the kernel."""
+    call = time_cuda(fn, reps)
+    return graph_ms(fn, reps), call
+
+
 def count_float_ops(fn):
     """Elements produced by float arithmetic ops while fn runs (one operation
     each): the work of the plain twin on these inputs."""
@@ -154,6 +198,113 @@ def count_float_ops(fn):
     with Count():
         res = fn()
     return res, Count.ops
+
+
+def k2_work(args, gjk_iters):
+    """What each (world, slot) of K2 does on these inputs, from the twin's
+    own GJK: its GJK trips (it runs trips until its simplex stops changing,
+    and one more to see it, at most gjk_iters), its manifold path, and its
+    shapes' vertex counts. Returns a dict of [W, C] tensors: trips, ca, cb,
+    and the path masks sat, vv (vertex-vertex), ev (edge-vertex clip),
+    cc (two circles), pc (polygon and circle)."""
+    import torch
+
+    from solver2d_tpu_torch.config import LINEAR_SLOP
+    from solver2d_tpu_torch.ops.narrow_lanes import gjk_lanes
+
+    geom, sa, sb, pa, pb, cache = args
+    W, _, C = pa.shape
+    ga, gb = geom[sa].t()[:, None, :], geom[sb].t()[:, None, :]
+    ca, cb = ga[32:33].to(torch.int32), gb[32:33].to(torch.int32)
+
+    def gjk(w0, w1, iters):
+        a = pa[w0:w1].transpose(0, 1)
+        b = pb[w0:w1].transpose(0, 1)
+        k = cache[w0:w1].transpose(0, 1)
+        qas, qac, qbs, qbc = a[2:3], a[3:4], b[2:3], b[3:4]
+        xqs, xqc = qac * qbs - qas * qbc, qac * qbc + qas * qbs
+        dxp, dyp = b[0:1] - a[0:1], b[1:2] - a[1:2]
+        xpx, xpy = qac * dxp + qas * dyp, -qas * dxp + qac * dyp
+        vbx, vby = gb[0:8], gb[8:16]
+        return gjk_lanes(ga[0:8], ga[8:16], ca, xpx + (xqc * vbx - xqs * vby), xpy + (xqs * vbx + xqc * vby), cb,
+                         k[0:1], (k[1:2], k[2:3], k[3:4]), (k[4:5], k[5:6], k[6:7]), iters)
+
+    def key(g):
+        return torch.cat([g.count, *g.ia, *g.ib])
+
+    trips, dist, count = [], [], []
+    for w0 in range(0, W, 64):
+        w1 = min(W, w0 + 64)
+        final = gjk(w0, w1, gjk_iters)
+        want = key(final)
+        settled = torch.full((w1 - w0, C), gjk_iters, dtype=torch.int32, device=pa.device)
+        for k in range(gjk_iters - 1, -1, -1):
+            same = (key(gjk(w0, w1, k)) == want).all(0)
+            settled = torch.where(same, torch.full_like(settled, k), settled)
+        trips.append(torch.clamp(settled + 1, max=gjk_iters))
+        dist.append(final.distance[0])
+        count.append(final.count[0])
+    trips, dist, count = torch.cat(trips), torch.cat(dist), torch.cat(count)
+    ca, cb = ca[0].expand(W, C), cb[0].expand(W, C)
+    circle_a, circle_b = ca == 1, cb == 1
+    poly = ~circle_a & ~circle_b
+    sat = poly & (dist < 0.1 * LINEAR_SLOP)
+    vv = poly & ~sat & (count == 1)
+    return dict(trips=trips, ca=ca, cb=cb, sat=sat, vv=vv, ev=poly & ~sat & ~vv, cc=circle_a & circle_b,
+                pc=circle_a ^ circle_b)
+
+
+def k2_ops(work):
+    """The float operations K2's function needs on these inputs, at most:
+    each operation of the kernel's own code (csrc/narrow.cu) counted once,
+    for the GJK trips a slot runs (each charged a 3-point simplex solve) and
+    the one manifold path it takes, its scans over its shapes' own vertex
+    counts. The twin runs every trip, scans 8 rows and computes every path,
+    so its count is not the function's."""
+    import torch
+
+    ca, cb, trips = work["ca"].double(), work["cb"].double(), work["trips"].double()
+    solve = 54.0  # w = B - A (6), the 3-point barycentric solve (48)
+    trip = solve + 15.0 + 2.0 + 3.0 * (ca + cb)  # solve, search direction, two support scans
+    clip = 63.0  # clip_polygons
+    ev = 28.0 + clip  # reference and incident edges from the GJK features; every non-SAT path fills its second point
+    path = (work["sat"] * (7.0 * (ca + cb) + 10.0 * ca * cb + clip)  # two max-separation scans, incident edges
+            + work["vv"] * (ev + 21.0) + work["ev"] * ev + work["cc"] * (ev + 23.0)
+            + work["pc"] * (ev + 69.0 + 5.0 * torch.where(work["ca"] == 1, cb, ca)))
+    # B into A's frame (15) and B's vertices and normals (14 each), the
+    # closing solve, the witness points and distance (42), the outputs (25)
+    per_slot = 15.0 + 14.0 * cb + trips * trip + solve + 42.0 + path + 25.0
+    return float(per_slot.sum())
+
+
+def k2_bound(args, ops):
+    """K2's least time on these inputs: the bytes its function must move
+    (per slot two poses and the cache in, 12 floats and 10 ints out; the
+    shape indices and rows once) over the memory rate, or `ops` float
+    operations (`k2_ops`) over the fp32 rate, whichever is larger. Returns
+    (ms, bytes ms, ops ms, bytes)."""
+    geom, _, _, pa, _, _ = args
+    W, _, C = pa.shape
+    nbytes = W * C * (2 * 16 + 28) + W * C * 88 + C * 8 + geom.shape[0] * 34 * 4
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_F32_S * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms, nbytes
+
+
+def k2_paths(work):
+    """The share of slots that take SAT, the share of warps (32 neighbouring
+    slots of one world, as the kernel maps them) that mix SAT with another
+    path, and the mean and largest GJK trips a slot."""
+    import torch
+
+    sat = work["sat"]
+    W, C = sat.shape
+    pad = (-C) % 32
+    u = torch.nn.functional.pad(sat, (0, pad)).reshape(W, -1, 32)
+    o = torch.nn.functional.pad(~sat, (0, pad)).reshape(W, -1, 32)
+    mixed = float((u.any(-1) & o.any(-1)).float().mean())
+    trips = work["trips"].float()
+    return float(sat.float().mean()), mixed, float(trips.mean()), int(trips.max())
 
 
 def k1_contact_columns(script, warm_start):
@@ -192,16 +343,21 @@ def k1_bytes(x, script, warm_start):
 
 def check_k1(name, state, cfg, W, dev, timed=True):
     """K1 against its twin on the inputs the per-world step hands it after 2
-    steps of W worlds under cfg.solver. Returns (max abs error, kernel ms,
-    twin ms, bound ms, bound_by); the times and the bound only if `timed`."""
+    steps of W worlds under cfg.solver, and, if `timed`, K2 against its twin
+    on the path's flattened narrowphase inputs. Returns (max abs error,
+    kernel ms, twin ms, bound ms, bound_by, extras); the times, the bound
+    and the extras (K1's barriers, attributes and staging; K2's time and
+    bound at this shape) only if `timed`."""
     import torch
 
     from solver2d_tpu_torch import batched_step, replicate
+    from solver2d_tpu_torch.ops import narrow_cuda
+    from solver2d_tpu_torch.ops.narrow_lanes import collide_lanes_plain
     from solver2d_tpu_torch.solvers import contact_kernels as ck
     from solver2d_tpu_torch.solvers import fused_cuda, joints
     from solver2d_tpu_torch.solvers.fused_solve import unpack_cons, unpack_joints, fused_solve_plain
     from solver2d_tpu_torch.solvers.loops import fused_static
-    from solver2d_tpu_torch.step import prepare
+    from solver2d_tpu_torch.step import prepare, world_narrow_inputs
 
     step = batched_step(cfg)
     batch = replicate(state, W)
@@ -229,9 +385,39 @@ def check_k1(name, state, cfg, W, dev, timed=True):
     if not err <= K1_ATOL:
         fail(f"K1 disagrees with its plain twin ({cfg.solver.name}, {name})")
     if not timed:
-        return err, None, None, None, None
-    k_ms = time_cuda(lambda: fused_cuda.fused_solve(x, **static), 20)
+        return err, None, None, None, None, {}
+    k_ms, call_ms = kernel_ms(lambda: fused_cuda.fused_solve(x, **static))
     p_ms = time_cuda(lambda: fused_solve_plain(x, **static), 2)
+    phases = torch.empty(W, dtype=torch.int32, device=dev)
+    fused_cuda.fused_solve(x, **static, phases=phases)
+    phases = phases.cpu()
+    B, C, J = x.bs.shape[1], x.cint.shape[1], x.jint.shape[1]
+    stage = fused_cuda.stage_bytes_default(script, B, C, J, W, dev)
+    attrs = fused_cuda.attributes(script, stage, B)
+    n_ph = int(phases.max())
+    print(f"[3] K1 {cfg.solver.name} {name}: {int(phases.min())}-{n_ph} barriers a world, "
+          f"{k_ms * 1e3 / n_ph:.3f} us a barrier; {attrs['registers']} registers, {attrs['spill_bytes']} spill bytes, "
+          f"{attrs['smem_bytes']} B dynamic shared memory ({stage} staging), {attrs['blocks_per_sm']} block(s) an SM",
+          flush=True)
+    extras = dict(call_ms=call_ms, phases=n_ph, us_per_phase=k_ms * 1e3 / n_ph, registers=attrs["registers"],
+                  spill_bytes=attrs["spill_bytes"], smem_bytes=attrs["smem_bytes"], stage_bytes=stage,
+                  blocks_per_sm=attrs["blocks_per_sm"])
+
+    # K2 at this path's shape (its worlds flattened into one lane batch)
+    args = world_narrow_inputs(batch, batch.contacts)
+    k2 = narrow_cuda.collide(*args, cfg.gjk_iters)
+    want2 = collide_lanes_plain(*args, cfg.gjk_iters)
+    ops2 = k2_ops(k2_work(args, cfg.gjk_iters))
+    torch.cuda.synchronize()
+    if not (torch.equal(k2[1], want2[1]) and torch.equal(k2[2], want2[2])
+            and float((k2[0] - want2[0]).abs().max()) <= K2_ATOL):
+        fail(f"K2 disagrees with its plain twin at path {name}")
+    k2_ms, k2_call = kernel_ms(lambda: narrow_cuda.collide(*args, cfg.gjk_iters))
+    k2_b, k2_bb, k2_bo, k2_nb = k2_bound(args, ops2)
+    print(f"[3] K2 at {name}'s flattened shape W={args[3].shape[0]} C={args[3].shape[2]}: equal to its twin, "
+          f"{k2_ms:.4f} ms ({k2_call:.4f} ms a call); bound {k2_b:.5f} ms ({k2_nb / 1e6:.2f} MB -> {k2_bb:.5f} ms; "
+          f"at most {ops2 / 1e9:.4f} GFLOP -> {k2_bo:.5f} ms), {k2_b / k2_ms:.1%} of bound", flush=True)
+    extras.update(k2_ms=k2_ms, k2_bound_ms=k2_b, k2_bound_by="bytes" if k2_bb >= k2_bo else "operations")
 
     # the bound: the bytes this run's data needs moved once, and the
     # operations of the constraint solves it needs (each active winner
@@ -260,10 +446,11 @@ def check_k1(name, state, cfg, W, dev, timed=True):
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     ops_ms = ops / PEAK_F32_S * 1e3
     bound = max(bytes_ms, ops_ms)
-    print(f"[3] K1 {cfg.solver.name} {name}: {k_ms:.4f} ms, plain twin {p_ms:.3f} ms; bound {bound:.5f} ms "
+    print(f"[3] K1 {cfg.solver.name} {name}: {k_ms:.4f} ms ({call_ms:.4f} ms a call), plain twin {p_ms:.3f} ms; "
+          f"bound {bound:.5f} ms "
           f"({nbytes / 1e6:.3f} MB -> {bytes_ms:.5f} ms; {ops / 1e9:.5f} GFLOP in {passes} passes -> "
-          f"{ops_ms:.5f} ms)", flush=True)
-    return err, k_ms, p_ms, bound, "bytes" if bytes_ms >= ops_ms else "operations"
+          f"{ops_ms:.5f} ms), {bound / k_ms:.1%} of bound", flush=True)
+    return err, k_ms, p_ms, bound, "bytes" if bytes_ms >= ops_ms else "operations", extras
 
 
 def run_path(label, step, batch, n_worlds, card, counters):
@@ -333,6 +520,11 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {src}: {line.strip()}", flush=True)
+    k2_attrs = {shape: narrow_cuda.attributes(w) for shape, w in (("lane", W), ("per-world", 1))}
+    for shape, at in k2_attrs.items():
+        print(f"[2] K2 ({shape} tile {at['tile'][0]} slots x {at['tile'][1]} worlds): {at['registers']} registers, "
+              f"{at['spill_bytes']} spill bytes, {at['smem_bytes']} B shared memory, {at['blocks_per_sm']} blocks "
+              f"({at['blocks_per_sm'] * at['tile'][0] * at['tile'][1] // 32} warps) an SM", flush=True)
 
     from solver2d_tpu_torch import SolverType, batched_step, pyramid_world, replicate, step_batch
     from solver2d_tpu_torch.ops.narrow_lanes import collide_lanes_plain
@@ -351,7 +543,7 @@ def main():
     C = args[1].shape[0]
     k_out = narrow_cuda.collide(*args, cfg.gjk_iters)
     torch.cuda.synchronize()
-    p_out, twin_ops = count_float_ops(lambda: collide_lanes_plain(*args, cfg.gjk_iters))
+    p_out = collide_lanes_plain(*args, cfg.gjk_iters)
     torch.cuda.synchronize()
     fk, ik, ck = k_out
     fp, ip, cp = p_out
@@ -365,17 +557,20 @@ def main():
           f"cache mismatches {n_cache}, float max abs err {max_abs:.3e} (tol {K2_ATOL})", flush=True)
     if n_id or n_cache or not max_abs <= K2_ATOL:
         fail("K2 disagrees with its plain twin")
-    k2_ms = time_cuda(lambda: narrow_cuda.collide(*args, cfg.gjk_iters), 20)
+    k2_ms, k2_call = kernel_ms(lambda: narrow_cuda.collide(*args, cfg.gjk_iters))
     plain_ms = time_cuda(lambda: collide_lanes_plain(*args, cfg.gjk_iters), 3)
-    S = args[0].shape[0]
-    k2_bytes = W * C * (2 * 16 + 28) + W * C * 88 + C * 8 + S * 34 * 4
-    bytes_ms = k2_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = twin_ops / PEAK_F32_S * 1e3
-    k2_bound = max(bytes_ms, ops_ms)
-    print(f"[3] K2 {k2_ms:.3f} ms, plain twin {plain_ms:.3f} ms; bound {k2_bound:.3f} ms "
-          f"({k2_bytes / 1e9:.3f} GB -> {bytes_ms:.3f} ms; {twin_ops / 1e9:.2f} GFLOP of the twin "
-          f"-> {ops_ms:.3f} ms)", flush=True)
-    del s1, args, k_out, p_out, fk, ik, ck, fp, ip, cp
+    work = k2_work(args, cfg.gjk_iters)
+    k2_flops = k2_ops(work)
+    k2_lane_bound, bytes_ms, ops_ms, k2_bytes = k2_bound(args, k2_flops)
+    print(f"[3] K2 {k2_ms:.4f} ms ({k2_call:.4f} ms a call), plain twin {plain_ms:.3f} ms; "
+          f"bound {k2_lane_bound:.3f} ms "
+          f"({k2_bytes / 1e9:.3f} GB -> {bytes_ms:.3f} ms; at most {k2_flops / 1e9:.2f} GFLOP "
+          f"-> {ops_ms:.3f} ms), {k2_lane_bound / k2_ms:.1%} of bound", flush=True)
+    sat_share, mixed_share, trips_mean, trips_max = k2_paths(work)
+    print(f"[3] K2 on the lane scene: {sat_share:.1%} of slots take SAT, {mixed_share:.1%} of warps mix SAT with "
+          f"another path; GJK trips a slot mean {trips_mean:.2f}, max {trips_max} of {cfg.gjk_iters}",
+          flush=True)
+    del s1, args, k_out, p_out, fk, ik, ck, fp, ip, cp, work
     torch.cuda.empty_cache()
 
     # K1 in each script: at (b), timed; at (a) with a mouse joint held from
@@ -526,9 +721,16 @@ def main():
             "source": "solver2d_tpu_torch/csrc/narrow.cu",
             "replaces": "solver2d_tpu/ops/narrow_pallas.py:33",
             "launches": launches, "max_abs_err": max_abs,
-            "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": k2_bound,
+            "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": k2_lane_bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "library_ms": None, "call_ms": k2_call,
+            "registers": k2_attrs["lane"]["registers"], "spill_bytes": k2_attrs["lane"]["spill_bytes"],
+            "smem_bytes": k2_attrs["lane"]["smem_bytes"], "blocks_per_sm": k2_attrs["lane"]["blocks_per_sm"],
+            "sat_share": sat_share, "sat_mixed_warps": mixed_share, "gjk_trips_mean": trips_mean,
+            "ms_b": k1["TGS_SOFT"][0][5]["k2_ms"], "bound_ms_b": k1["TGS_SOFT"][0][5]["k2_bound_ms"],
+            "bound_by_b": k1["TGS_SOFT"][0][5]["k2_bound_by"],
+            "ms_a": k1["TGS_SOFT"][1][5]["k2_ms"], "bound_ms_a": k1["TGS_SOFT"][1][5]["k2_bound_ms"],
+            "bound_by_a": k1["TGS_SOFT"][1][5]["k2_bound_by"],
         },
     ] + [
         {
@@ -538,6 +740,9 @@ def main():
             "launches": k1_launches[solver], "max_abs_err": max(r[0] for r in k1[solver]),
             "ms": k1[solver][0][1], "plain_ms": k1[solver][0][2], "bound_ms": k1[solver][0][3],
             "bound_by": k1[solver][0][4], "library_ms": None,
+            **{k: k1[solver][0][5][k] for k in ("call_ms", "phases", "us_per_phase", "registers", "spill_bytes",
+                                                 "smem_bytes", "stage_bytes", "blocks_per_sm")},
+            "ms_a": k1[solver][1][1], "bound_ms_a": k1[solver][1][3], "phases_a": k1[solver][1][5]["phases"],
         }
         for solver, label in zip(FUSED, ("TGS_Soft", "SoftStep", "PGS_Soft"))
     ]}), flush=True)

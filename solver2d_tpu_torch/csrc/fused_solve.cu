@@ -19,22 +19,38 @@
 //   integrate, then `relax` relax passes. The contacts solve at r_a0, r_b0
 //   with the prepared separation.
 //
-// Design. The world's packed body state [B, 8] and its per-body constants
-// [B, 8] live in shared memory for the whole solve (64 B a body: 13.5 KB at
-// 211 bodies; the freeze gate keeps it under the 227 KB a block may have).
-// Contact rows [C, 37] and joint rows [J, 23] stream from global memory,
-// and their impulses live in the output arrays, each constraint always
-// handled by the same thread (c % blockDim). A color phase lets each thread
-// take the constraints of that color that are active and won the body map,
-// gather their two body rows from shared memory, run the solve in
-// registers and write back only the endpoints it owns; the coloring gives
-// every dynamic body at most one such constraint a color, so no two
-// threads touch one body, and a block barrier separates the phases. The
-// one-hot incidence products of the TPU kernel become these indexed loads
-// and stores. The warm start writes each constraint's two deltas to a
-// scratch table, then one thread a body adds its deltas in the order the
-// wrapper's plan gives (contacts: the JAX scatter's [body_a; body_b] order;
-// joints: color order), never with atomics.
+// Design. One block of 256 threads a world. The world's packed body state
+// [B, 8] and its per-body constants [B, 8] live in shared memory for the
+// whole solve (64 B a body: 13.5 KB at 211 bodies; the freeze gate keeps it
+// under the 227 KB a block may have). At the start the block sorts its
+// constraints into per-color lists: it counts each color's active winners
+// (and, in a last group, the active contacts and planned joints that are
+// warm started but not solved) with shared-memory atomics, takes a prefix
+// sum, and places each constraint in its group. The order inside a group is
+// free: a color's constraints touch disjoint dynamic bodies (the coloring's
+// one-writer rule), so any order gives the same bits. Then it stages, in
+// list order, the rows it will read on every pass into the rest of the
+// shared memory, `stage_bytes` of it (the wrapper gives what is left after
+// the bodies, or, where the worlds outnumber the SMs, what lets 2 blocks
+// share an SM, so that one block's phases fill the other's barrier
+// waits): the float columns the script reads (27 of a contact's 37
+// for TGS_Soft, 35 for the others; a joint's 23; an odd stride, so a warp
+// reading one column of neighbouring rows hits distinct banks), their
+// impulses and body indices and flags, then the warm start's delta tables
+// and plans. What does not fit is read from global memory through the same
+// code with a row pointer: the lists themselves, a tail of rows, the
+// deltas, the plans. A color phase gives list entry i to thread i, gathers
+// the two body rows from shared memory, solves in registers and writes back
+// only the endpoints it owns; a block barrier separates the phases. A color
+// whose list is empty is skipped with its barrier (the counts are the
+// block's, so every thread skips alike), and so are the warm starts of a
+// world without active contacts or live joints. Impulses of staged rows go
+// back to global memory once, at the end. The warm start writes each
+// constraint's two deltas to a table by slot, then one thread a body adds
+// its deltas in the order the wrapper's plan gives (contacts: the JAX
+// scatter's [body_a; body_b] order; joints: color order), never with
+// atomics. The one-hot incidence products of the TPU kernel become these
+// indexed loads and stores.
 //
 // A mouse joint never writes its body A, but reads A's velocity in its
 // pivot velocity, as the JAX package's joints.solve_joint_core does. That
@@ -61,11 +77,11 @@
 // 7.5 MB (TGS_Soft) to 8.7 MB, a few microseconds at 3.35 TB/s. Its
 // floating-point work is a few hundred operations per constraint and pass.
 // What bounds it is latency: barrier-separated phases, each a dependent
-// chain of a few hundred operations on one constraint per thread; (contact
-// + joint colors) per pass, and 4 substeps x 2 passes (TGS_Soft, SoftStep)
-// or 4 + 2 passes (PGS_Soft) at the pyramid's configuration. chip_smoke.py
-// reports the bound as the larger of the bytes and the operations of this
-// run's inputs.
+// chain of a few hundred operations on one constraint per thread, one phase
+// per non-empty color and pass, 64 blocks on 132 SMs. The kernel counts its
+// barriers (`phases`); chip_smoke.py reports them, the time a phase, and
+// the bound as the larger of the bytes and the operations of this run's
+// inputs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,6 +93,12 @@ constexpr double kPi = 3.14159265359;        // config.PI
 constexpr double kMathPi = 3.141592653589793;  // math.pi
 constexpr int kNF = 37;                      // contact fields
 constexpr int kNJF = 23;                     // joint fields
+constexpr int kThreads = 256;
+constexpr int kMaxColors = 30;               // the wrapper's limit
+constexpr int kGroups = kMaxColors + 2;      // per-color lists, the warm-only group, the total
+// per world, the global ints behind what is not staged: 4 group tables,
+// then the contact and joint lists (s2t_fused_solve's iscratch)
+constexpr int kScratchHead = 4 * kGroups;
 
 // contact flag bits (fused_solve.py C_*)
 constexpr int C_PMASK0 = 1, C_ACTIVE = 4, C_WRITE_A = 8, C_WRITE_B = 16, C_WINNER = 32;
@@ -91,18 +113,29 @@ constexpr int J_MOUSE = 1, J_ACTIVE = 2, J_LIMIT = 4, J_MOTOR = 8, J_WRITE_A = 1
 // current rotation (else r_a0, r_b0); sep_from_delta: the separation follows
 // the bodies' deltas (else the prepared one); clamp: the soft bias's floor
 // in units of -MAX_BAUMGARTE_VELOCITY (4); fixed_warm: the contact warm
-// start at r_a0, r_b0; pgs: the PGS loop (else the substep loop).
+// start at r_a0, r_b0; pgs: the PGS loop (else the substep loop). The
+// contact columns a script reads are staged, `ncol` of them; col(k) is
+// column k's place in a staged row.
 struct ScriptTgsSoft {
   static constexpr bool current_anchors = true, sep_from_delta = true, fixed_warm = false, pgs = false;
   static constexpr double clamp = 1.0;
+  static constexpr int ncol = 27;  // not r_a0, r_b0, separation (15-24)
+  __device__ static constexpr bool reads(int k) { return k < 15 || k >= 25; }
+  __device__ static constexpr int col(int k) { return k < 15 ? k : k - 10; }
 };
 struct ScriptSoftStep {
   static constexpr bool current_anchors = false, sep_from_delta = true, fixed_warm = true, pgs = false;
   static constexpr double clamp = 0.5;
+  static constexpr int ncol = 35;  // not the separation (23-24)
+  __device__ static constexpr bool reads(int k) { return k < 23 || k >= 25; }
+  __device__ static constexpr int col(int k) { return k < 23 ? k : k - 2; }
 };
 struct ScriptPgsSoft {
   static constexpr bool current_anchors = false, sep_from_delta = false, fixed_warm = false, pgs = true;
   static constexpr double clamp = 0.5;
+  static constexpr int ncol = 35;  // not the adjusted separation (25-26)
+  __device__ static constexpr bool reads(int k) { return k < 25 || k >= 27; }
+  __device__ static constexpr int col(int k) { return k < 25 ? k : k - 2; }
 };
 
 // ops/math2d.py:atan2, operation for operation
@@ -151,13 +184,131 @@ struct Params {
   float* jimp_out;          // [W, J, 5]
   float* cdelta;            // [W, 2C, 3] scratch
   float* jdelta;            // [W, 2J, 3] scratch
-  int W, B, C, J, K, KJ, substeps, relax, warm_start;
+  int* iscratch;            // [W, kScratchHead + C + J] scratch
+  int* phases;              // [W] barriers the block passed, or null
+  int W, B, C, J, K, KJ, substeps, relax, warm_start, stage_bytes;
 };
+
+// Shared memory past the bodies, handed out front to back in 16-byte
+// units; what does not fit stays in global memory.
+struct Carve {
+  char* p;
+  int left;
+  __device__ void* take(int bytes) {
+    bytes = (bytes + 15) & ~15;
+    if (bytes > left) return nullptr;
+    void* r = p;
+    p += bytes;
+    left -= bytes;
+    return r;
+  }
+  // how many items of `bytes` bytes fit in `parts` 16-byte aligned arrays
+  __device__ int fit(int bytes, int parts) const {
+    const int room = left - 16 * parts;
+    return room > 0 ? room / bytes : 0;
+  }
+};
+
+// One world's solve state; every thread holds the same copy.
+struct World {
+  float* sbs;  // [B, 8] body state (shared)
+  float* sbc;  // [B, 8] body constants (shared)
+  // group tables: start offsets (group g at [g], the total at [K + 1]) and
+  // cursors, for contacts (groups 0..K-1 the colors, K the warm-only) and
+  // joints (0..KJ-1, KJ)
+  int *cofs, *ccur, *jofs, *jcur;
+  int *clist, *jlist;  // slot of each list entry
+  // staged rows of the first ncap_c contacts and ncap_j joints of the lists:
+  // columns (stride ncol / 23), impulses and ints (SoA, stride ncap)
+  int ncap_c, ncap_j;
+  float *scf, *scimp, *sjf, *sjimp;
+  int *sci, *sji;
+  float *cdelta, *jdelta;
+  const int *c_off, *c_ent, *j_off, *j_ent;
+  int w, nc, nj;  // the world; its listed contacts and joints
+  float h, inv_h;
+  int phases;
+};
+
+__device__ __forceinline__ void barrier(World& a) {
+  __syncthreads();
+  ++a.phases;
+}
+
+// A contact's row: staged (columns at col(k)) or in global memory.
+template <class S>
+struct CRow {
+  const float* f;
+  bool staged;
+  float *n, *t;  // impulses: point q at n[q * is]
+  int is;
+  int ia, ib, flags, c;
+  __device__ __forceinline__ float operator[](int k) const { return f[staged ? S::col(k) : k]; }
+};
+
+template <class S>
+__device__ __forceinline__ CRow<S> contact_row(const Params& p, const World& a, int pos) {
+  CRow<S> r;
+  r.c = a.clist[pos];
+  if (pos < a.ncap_c) {
+    r.f = a.scf + pos * S::ncol;
+    r.staged = true;
+    r.n = a.scimp + pos;
+    r.t = a.scimp + 2 * a.ncap_c + pos;
+    r.is = a.ncap_c;
+    r.ia = a.sci[pos];
+    r.ib = a.sci[a.ncap_c + pos];
+    r.flags = a.sci[2 * a.ncap_c + pos];
+  } else {
+    const long long row = (long long)a.w * p.C + r.c;
+    r.f = p.cfields + row * kNF;
+    r.staged = false;
+    r.n = p.n_out + row * 2;
+    r.t = p.t_out + row * 2;
+    r.is = 1;
+    const int* ci = p.cint + row * 4;
+    r.ia = ci[0];
+    r.ib = ci[1];
+    r.flags = ci[3];
+  }
+  return r;
+}
+
+// A joint's row: staged or in global memory (23 columns either way).
+struct JRow {
+  const float* f;
+  float* imp;  // impulse q at imp[q * is]
+  int is;
+  int ja, jb, flags, j;
+};
+
+__device__ __forceinline__ JRow joint_row(const Params& p, const World& a, int pos) {
+  JRow r;
+  r.j = a.jlist[pos];
+  if (pos < a.ncap_j) {
+    r.f = a.sjf + pos * kNJF;
+    r.imp = a.sjimp + pos;
+    r.is = a.ncap_j;
+    r.ja = a.sji[pos];
+    r.jb = a.sji[a.ncap_j + pos];
+    r.flags = a.sji[2 * a.ncap_j + pos];
+  } else {
+    const long long row = (long long)a.w * p.J + r.j;
+    r.f = p.jfields + row * kNJF;
+    r.imp = p.jimp_out + row * 5;
+    r.is = 1;
+    const int* ji = p.jint + row * 4;
+    r.ja = ji[0];
+    r.jb = ji[1];
+    r.flags = ji[3];
+  }
+  return r;
+}
 
 // The anchors of a contact's point j: rotated to the current rotation, or
 // the prepare-time r_a0, r_b0 (columns 15-22).
-template <bool kCurrent>
-__device__ __forceinline__ void contact_anchors(const float* f, int j, float qAs, float qAc, float qBs, float qBc,
+template <bool kCurrent, class S>
+__device__ __forceinline__ void contact_anchors(const CRow<S>& f, int j, float qAs, float qAc, float qBs, float qBc,
                                                 float* rAx, float* rAy, float* rBx, float* rBy) {
   if (kCurrent) {
     rotate(qAs, qAc, f[7 + 2 * j], f[8 + 2 * j], rAx, rAy);
@@ -171,15 +322,12 @@ __device__ __forceinline__ void contact_anchors(const float* f, int j, float qAs
 }
 
 // One contact's soft solve (contact_kernels.solve_contact_core in the
-// script's mode) on the rows in shared memory, then its writes.
+// script's mode), then its writes.
 template <class S, bool kBias>
-__device__ void solve_contact(const Params& p, float* sbs, int w, int c, float inv_h) {
-  const long long row = (long long)w * p.C + c;
-  const float* f = p.cfields + row * kNF;
-  const int* ci = p.cint + row * 4;
-  const int ia = ci[0], ib = ci[1], flags = ci[3];
-  float* A = sbs + ia * 8;
-  float* Bo = sbs + ib * 8;
+__device__ void solve_contact(const World& a, const CRow<S>& f) {
+  const int flags = f.flags;
+  float* A = a.sbs + f.ia * 8;
+  float* Bo = a.sbs + f.ib * 8;
   float vAx = A[0], vAy = A[1], wA = A[2];
   const float dcAx = A[3], dcAy = A[4], qAs = A[5], qAc = A[6];
   float vBx = Bo[0], vBy = Bo[1], wB = Bo[2];
@@ -187,10 +335,9 @@ __device__ void solve_contact(const Params& p, float* sbs, int w, int c, float i
   const float mA = f[0], iA = f[1], mB = f[2], iB = f[3];
   const float nx = f[4], ny = f[5], fr = f[6];
   const float tx = ny, ty = -nx;
-  float* nimp = p.n_out + row * 2;
-  float* timp = p.t_out + row * 2;
-  float ncol[2] = {nimp[0], nimp[1]};
-  float tcol[2] = {timp[0], timp[1]};
+  const float inv_h = a.inv_h;
+  float ncol[2] = {f.n[0], f.n[f.is]};
+  float tcol[2] = {f.t[0], f.t[f.is]};
 
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -265,13 +412,12 @@ __device__ void solve_contact(const Params& p, float* sbs, int w, int c, float i
     Bo[1] = vBy;
     Bo[2] = wB;
   }
-  nimp[0] = ncol[0];
-  nimp[1] = ncol[1];
-  timp[0] = tcol[0];
-  timp[1] = tcol[1];
+  f.n[0] = ncol[0];
+  f.n[f.is] = ncol[1];
+  f.t[0] = tcol[0];
+  f.t[f.is] = tcol[1];
 }
 
-// _motor_limits' limit(): one side of the soft angle limit
 template <bool kBias>
 __device__ __forceinline__ float limit_impulse(float C, float cdot, float old, float scale_imp, float am, float bc,
                                                float mc, float ic, float inv_h) {
@@ -293,22 +439,22 @@ __device__ __forceinline__ float limit_impulse(float C, float cdot, float old, f
 // One joint's soft solve (joints.solve_joint_core), then its writes. The
 // caller passes only joints in scope (active; not mouse in a relax pass).
 template <bool kBias, bool kMouse>
-__device__ void solve_joint(const Params& p, float* sbs, int w, int j, float h, float inv_h) {
-  const long long row = (long long)w * p.J + j;
-  const float* f = p.jfields + row * kNJF;
-  const int* ji = p.jint + row * 4;
-  const int ja = ji[0], jb = ji[1], flags = ji[3];
+__device__ void solve_joint(const World& a, const JRow& r) {
+  const float* f = r.f;
+  const int flags = r.flags;
+  const float h = a.h, inv_h = a.inv_h;
   const bool mouse = flags & J_MOUSE;
-  float* A = sbs + ja * 8;
-  float* Bo = sbs + jb * 8;
+  float* A = a.sbs + r.ja * 8;
+  float* Bo = a.sbs + r.jb * 8;
   float vAx = A[0], vAy = A[1], wA = A[2];
   const float dcAx = A[3], dcAy = A[4], qAs = A[5], qAc = A[6];
   float vBx = Bo[0], vBy = Bo[1], wB = Bo[2];
   const float dcBx = Bo[3], dcBy = Bo[4], qBs = Bo[5], qBc = Bo[6];
   const float mA = f[0], iA = f[1], mB = f[2], iB = f[3];
   const float am = f[10], bc = f[14], mc = f[15], ic = f[16];
-  float* imp = p.jimp_out + row * 5;
-  const float P0 = imp[0], P1 = imp[1], motor0 = imp[2], lower0 = imp[3], upper0 = imp[4];
+  float* imp = r.imp;
+  const int is = r.is;
+  const float P0 = imp[0], P1 = imp[is], motor0 = imp[2 * is], lower0 = imp[3 * is], upper0 = imp[4 * is];
 
   // motor (joints._motor_limits)
   const bool fixed_rot = (iA + iB) == 0.0f;
@@ -414,33 +560,33 @@ __device__ void solve_joint(const Params& p, float* sbs, int w, int j, float h, 
     Bo[2] = wB;
   }
   imp[0] = P0 + i0;
-  imp[1] = P1 + i1;
-  imp[2] = motor;
-  imp[3] = lower;
-  imp[4] = upper;
+  imp[is] = P1 + i1;
+  imp[2 * is] = motor;
+  imp[3 * is] = lower;
+  imp[4 * is] = upper;
 }
 
+// One phase per non-empty joint color: list entry i to thread i.
 template <bool kBias, bool kMouse>
-__device__ void joint_colors(const Params& p, float* sbs, int w, float h, float inv_h) {
+__device__ void joint_colors(const Params& p, World& a) {
   for (int k = 0; k < p.KJ; ++k) {
-    for (int j = threadIdx.x; j < p.J; j += blockDim.x) {
-      const int* ji = p.jint + ((long long)w * p.J + j) * 4;
-      const int flags = ji[3];
-      const bool scope = (flags & J_ACTIVE) && (kMouse || !(flags & J_MOUSE));
-      if (ji[2] == k && scope && (flags & J_WINNER)) solve_joint<kBias, kMouse>(p, sbs, w, j, h, inv_h);
+    const int beg = a.jofs[k], n = a.jofs[k + 1] - beg;
+    if (n == 0) continue;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const JRow r = joint_row(p, a, beg + i);
+      if (kMouse || !(r.flags & J_MOUSE)) solve_joint<kBias, kMouse>(a, r);
     }
-    __syncthreads();
+    barrier(a);
   }
 }
 
 template <class S, bool kBias>
-__device__ void contact_colors(const Params& p, float* sbs, int w, float inv_h) {
+__device__ void contact_colors(const Params& p, World& a) {
   for (int k = 0; k < p.K; ++k) {
-    for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
-      const int* ci = p.cint + ((long long)w * p.C + c) * 4;
-      if (ci[2] == k && (ci[3] & C_ACTIVE) && (ci[3] & C_WINNER)) solve_contact<S, kBias>(p, sbs, w, c, inv_h);
-    }
-    __syncthreads();
+    const int beg = a.cofs[k], n = a.cofs[k + 1] - beg;
+    if (n == 0) continue;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) solve_contact<S, kBias>(a, contact_row<S>(p, a, beg + i));
+    barrier(a);
   }
 }
 
@@ -449,7 +595,7 @@ __device__ void apply_plan(float* sbs, const int* off, const int* ent, const flo
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     float* r = sbs + b * 8;
     for (int e = off[b]; e < off[b + 1]; ++e) {
-      const float* d = delta + (long long)ent[e] * 3;
+      const float* d = delta + ent[e] * 3;
       r[0] = r[0] + d[0];
       r[1] = r[1] + d[1];
       r[2] = r[2] + d[2];
@@ -457,16 +603,7 @@ __device__ void apply_plan(float* sbs, const int* off, const int* ent, const flo
   }
 }
 
-struct World {
-  float* sbs;  // [B, 8] body state (shared)
-  float* sbc;  // [B, 8] body constants (shared)
-  const int *c_off, *c_ent, *j_off, *j_ent;
-  float *cdelta, *jdelta;
-  int w;
-  float h, inv_h;
-};
-
-__device__ void integrate_velocities(const Params& p, const World& a) {
+__device__ void integrate_velocities(const Params& p, World& a) {
   for (int b = threadIdx.x; b < p.B; b += blockDim.x) {
     float* r = a.sbs + b * 8;
     const float* k = a.sbc + b * 8;
@@ -477,10 +614,10 @@ __device__ void integrate_velocities(const Params& p, const World& a) {
       r[2] = (r[2] + a.h * k[5]) * k[7];
     }
   }
-  __syncthreads();
+  barrier(a);
 }
 
-__device__ void integrate_positions(const Params& p, const World& a) {
+__device__ void integrate_positions(const Params& p, World& a) {
   for (int b = threadIdx.x; b < p.B; b += blockDim.x) {
     float* r = a.sbs + b * 8;
     if (a.sbc[b * 8 + 1] > 0.0f) {
@@ -495,27 +632,26 @@ __device__ void integrate_positions(const Params& p, const World& a) {
       r[6] = qc * inv;
     }
   }
-  __syncthreads();
+  barrier(a);
 }
 
-// joint warm start: the deltas of both endpoints of every joint, summed
-// into the bodies in plan order
-__device__ void joint_warm(const Params& p, const World& a) {
+// joint warm start: the deltas of both endpoints of every planned joint
+// (the listed ones), summed into the bodies in plan order
+__device__ void joint_warm(const Params& p, World& a) {
+  if (a.nj == 0) return;
   const int J = p.J;
-  for (int j = threadIdx.x; j < J; j += blockDim.x) {
-    const long long row = (long long)a.w * J + j;
-    const float* f = p.jfields + row * kNJF;
-    const int* ji = p.jint + row * 4;
-    const float* imp = p.jimp_out + row * 5;
-    const float* A = a.sbs + ji[0] * 8;
-    const float* Bo = a.sbs + ji[1] * 8;
+  for (int pos = threadIdx.x; pos < a.nj; pos += blockDim.x) {
+    const JRow r = joint_row(p, a, pos);
+    const float* f = r.f;
+    const float* A = a.sbs + r.ja * 8;
+    const float* Bo = a.sbs + r.jb * 8;
     float rAx, rAy, rBx, rBy;
     rotate(A[5], A[6], f[4], f[5], &rAx, &rAy);
     rotate(Bo[5], Bo[6], f[6], f[7], &rBx, &rBy);
-    const float Px = imp[0], Py = imp[1];
-    const float axial = (ji[3] & J_MOUSE) ? imp[2] : imp[2] + imp[3] - imp[4];
-    float* dA = a.jdelta + (long long)j * 3;
-    float* dB = a.jdelta + (long long)(J + j) * 3;
+    const float Px = r.imp[0], Py = r.imp[r.is];
+    const float axial = (r.flags & J_MOUSE) ? r.imp[2 * r.is] : r.imp[2 * r.is] + r.imp[3 * r.is] - r.imp[4 * r.is];
+    float* dA = a.jdelta + r.j * 3;
+    float* dB = a.jdelta + (J + r.j) * 3;
     dA[0] = (-f[0]) * Px;
     dA[1] = (-f[0]) * Py;
     dA[2] = (-f[1]) * (cross(rAx, rAy, Px, Py) + axial);
@@ -523,41 +659,39 @@ __device__ void joint_warm(const Params& p, const World& a) {
     dB[1] = f[2] * Py;
     dB[2] = f[3] * (cross(rBx, rBy, Px, Py) + axial);
   }
-  __syncthreads();
+  barrier(a);
   apply_plan(a.sbs, a.j_off, a.j_ent, a.jdelta, p.B);
-  __syncthreads();
+  barrier(a);
 }
 
-// contact warm start, at the anchors rotated to the current rotation or at
-// the prepare-time anchors (S::fixed_warm)
+// contact warm start of every active contact (the listed ones), at the
+// anchors rotated to the current rotation or at the prepare-time anchors
+// (S::fixed_warm)
 template <class S>
-__device__ void contact_warm(const Params& p, const World& a) {
+__device__ void contact_warm(const Params& p, World& a) {
+  if (a.nc == 0) return;
   const int C = p.C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const long long row = (long long)a.w * C + c;
-    const int* ci = p.cint + row * 4;
-    const int flags = ci[3];
-    if (!(flags & C_ACTIVE)) continue;
-    const float* f = p.cfields + row * kNF;
-    const float* A = a.sbs + ci[0] * 8;
-    const float* Bo = a.sbs + ci[1] * 8;
+  for (int pos = threadIdx.x; pos < a.nc; pos += blockDim.x) {
+    const CRow<S> f = contact_row<S>(p, a, pos);
+    const int flags = f.flags;
+    const float* A = a.sbs + f.ia * 8;
+    const float* Bo = a.sbs + f.ib * 8;
     const float nx = f[4], ny = f[5], tx = ny, ty = -nx;
-    const float* nimp = p.n_out + row * 2;
-    const float* timp = p.t_out + row * 2;
     float Px[2], Py[2], tqA[2], tqB[2];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const bool pm = flags & (C_PMASK0 << q);
-      Px[q] = pm ? nimp[q] * nx + timp[q] * tx : 0.0f;
-      Py[q] = pm ? nimp[q] * ny + timp[q] * ty : 0.0f;
+      const float nq = f.n[q * f.is], tq = f.t[q * f.is];
+      Px[q] = pm ? nq * nx + tq * tx : 0.0f;
+      Py[q] = pm ? nq * ny + tq * ty : 0.0f;
       float rAx, rAy, rBx, rBy;
       contact_anchors<!S::fixed_warm>(f, q, A[5], A[6], Bo[5], Bo[6], &rAx, &rAy, &rBx, &rBy);
       tqA[q] = cross(rAx, rAy, Px[q], Py[q]);
       tqB[q] = cross(rBx, rBy, Px[q], Py[q]);
     }
     const float Ptx = Px[0] + Px[1], Pty = Py[0] + Py[1];
-    float* dA = a.cdelta + (long long)c * 3;
-    float* dB = a.cdelta + (long long)(C + c) * 3;
+    float* dA = a.cdelta + f.c * 3;
+    float* dB = a.cdelta + (C + f.c) * 3;
     dA[0] = (-f[0]) * Ptx;
     dA[1] = (-f[0]) * Pty;
     dA[2] = (-f[1]) * (tqA[0] + tqA[1]);
@@ -565,53 +699,185 @@ __device__ void contact_warm(const Params& p, const World& a) {
     dB[1] = f[2] * Pty;
     dB[2] = f[3] * (tqB[0] + tqB[1]);
   }
-  __syncthreads();
+  barrier(a);
   apply_plan(a.sbs, a.c_off, a.c_ent, a.cdelta, p.B);
-  __syncthreads();
+  barrier(a);
 }
 
 template <class S, bool kBias>
-__device__ void solve_passes(const Params& p, const World& a) {
+__device__ void solve_passes(const Params& p, World& a) {
   // a biased pass solves the mouse joints too; a relax pass leaves them
-  joint_colors<kBias, kBias>(p, a.sbs, a.w, a.h, a.inv_h);
-  contact_colors<S, kBias>(p, a.sbs, a.w, a.inv_h);
+  joint_colors<kBias, kBias>(p, a);
+  contact_colors<S, kBias>(p, a);
+}
+
+// a contact's list group: its color if it is an active winner of a color
+// < K, K if it is active otherwise (warm start only), -1 if inactive
+__device__ __forceinline__ int contact_group(const int* ci, int K) {
+  const int flags = ci[3], color = ci[2];
+  if (!(flags & C_ACTIVE)) return -1;
+  return ((flags & C_WINNER) && color >= 0 && color < K) ? color : K;
+}
+
+// a joint's: its color if it is a planned joint (active, winner, colored)
+// of a color < KJ, KJ if planned with a larger color, -1 otherwise
+__device__ __forceinline__ int joint_group(const int* ji, int KJ) {
+  const int flags = ji[3], color = ji[2];
+  if (!((flags & J_ACTIVE) && (flags & J_WINNER) && color >= 0)) return -1;
+  return color < KJ ? color : KJ;
+}
+
+// group offsets from the counts in cur (groups 0..G), cursors reset to them
+__device__ void group_offsets(int* ofs, int* cur, int G) {
+  int acc = 0;
+  for (int g = 0; g <= G; ++g) {
+    ofs[g] = acc;
+    acc += cur[g];
+    cur[g] = ofs[g];
+  }
+  ofs[G + 1] = acc;
 }
 
 template <class S>
-__global__ void fused_solve_kernel(Params p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads) fused_solve_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int w = blockIdx.x;
-  const int B = p.B, C = p.C, J = p.J;
+  const int B = p.B, C = p.C, J = p.J, K = p.K, KJ = p.KJ;
+  const int tid = threadIdx.x, nt = blockDim.x;
   World a;
+  a.w = w;
+  a.phases = 0;
+  a.h = p.scal[0];
+  a.inv_h = p.scal[1];
   a.sbs = smem;
   a.sbc = smem + B * 8;
-  a.w = w;
+  Carve cv{reinterpret_cast<char*>(smem + B * 16), p.stage_bytes};
+  int* gi = p.iscratch + (long long)w * (kScratchHead + C + J);
+  auto ints = [&](int n, int* global) {
+    int* s = static_cast<int*>(cv.take(n * 4));
+    return s ? s : global;
+  };
+  a.cofs = ints(kGroups, gi);
+  a.ccur = ints(kGroups, gi + kGroups);
+  a.jofs = ints(kGroups, gi + 2 * kGroups);
+  a.jcur = ints(kGroups, gi + 3 * kGroups);
+  a.clist = ints(C, gi + kScratchHead);
+  a.jlist = ints(J, gi + kScratchHead + C);
+
   const long long bo = (long long)w * B * 8;
-  for (int i = threadIdx.x; i < B * 8; i += blockDim.x) {
+  for (int i = tid; i < B * 8; i += nt) {
     a.sbs[i] = p.bs0[bo + i];
     a.sbc[i] = p.body_const[bo + i];
   }
-  // each thread owns the impulses of the constraints it solves
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+  for (int g = tid; g < kGroups; g += nt) {
+    a.ccur[g] = 0;
+    a.jcur[g] = 0;
+  }
+  // the impulses start as given; staged ones come back at the end
+  for (int c = tid; c < C; c += nt) {
     const long long r = ((long long)w * C + c) * 2;
     p.n_out[r] = p.n0[r];
     p.n_out[r + 1] = p.n0[r + 1];
     p.t_out[r] = p.t0[r];
     p.t_out[r + 1] = p.t0[r + 1];
   }
-  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+  for (int j = tid; j < J; j += nt) {
     const long long r = ((long long)w * J + j) * 5;
     for (int q = 0; q < 5; ++q) p.jimp_out[r + q] = p.jimp0[r + q];
   }
-  a.h = p.scal[0];
-  a.inv_h = p.scal[1];
-  a.c_off = p.c_off + (long long)w * (B + 1);
-  a.c_ent = p.c_ent + (long long)w * 2 * C;
-  a.j_off = p.j_off + (long long)w * (B + 1);
-  a.j_ent = p.j_ent + (long long)w * 2 * J;
-  a.cdelta = p.cdelta + (long long)w * 2 * C * 3;
-  a.jdelta = p.jdelta + (long long)w * 2 * J * 3;
-  __syncthreads();
+  const int* cint = p.cint + (long long)w * C * 4;
+  const int* jint = p.jint + (long long)w * J * 4;
+  barrier(a);
+
+  // the per-color lists: count, offsets, place (atomics order a group's
+  // entries freely; the coloring makes that order immaterial)
+  for (int c = tid; c < C; c += nt) {
+    const int g = contact_group(cint + c * 4, K);
+    if (g >= 0) atomicAdd(a.ccur + g, 1);
+  }
+  for (int j = tid; j < J; j += nt) {
+    const int g = joint_group(jint + j * 4, KJ);
+    if (g >= 0) atomicAdd(a.jcur + g, 1);
+  }
+  barrier(a);
+  if (tid == 0) {
+    group_offsets(a.cofs, a.ccur, K);
+    group_offsets(a.jofs, a.jcur, KJ);
+  }
+  barrier(a);
+  a.nc = a.cofs[K + 1];
+  a.nj = a.jofs[KJ + 1];
+
+  // stage rows in list order as far as they fit, then the warm-start
+  // tables and plans
+  a.ncap_c = min(a.nc, cv.fit((S::ncol + 4 + 3) * 4, 3));
+  a.scf = static_cast<float*>(cv.take(a.ncap_c * S::ncol * 4));
+  a.scimp = static_cast<float*>(cv.take(a.ncap_c * 4 * 4));
+  a.sci = static_cast<int*>(cv.take(a.ncap_c * 3 * 4));
+  a.ncap_j = min(a.nj, cv.fit((kNJF + 5 + 3) * 4, 3));
+  a.sjf = static_cast<float*>(cv.take(a.ncap_j * kNJF * 4));
+  a.sjimp = static_cast<float*>(cv.take(a.ncap_j * 5 * 4));
+  a.sji = static_cast<int*>(cv.take(a.ncap_j * 3 * 4));
+  float* cd = static_cast<float*>(cv.take(2 * C * 3 * 4));
+  a.cdelta = cd ? cd : p.cdelta + (long long)w * 2 * C * 3;
+  float* jd = static_cast<float*>(cv.take(2 * J * 3 * 4));
+  a.jdelta = jd ? jd : p.jdelta + (long long)w * 2 * J * 3;
+  const int* gc_off = p.c_off + (long long)w * (B + 1);
+  const int* gc_ent = p.c_ent + (long long)w * 2 * C;
+  const int* gj_off = p.j_off + (long long)w * (B + 1);
+  const int* gj_ent = p.j_ent + (long long)w * 2 * J;
+  int* sc_plan = static_cast<int*>(cv.take((B + 1 + 2 * C) * 4));
+  int* sj_plan = static_cast<int*>(cv.take((B + 1 + 2 * J) * 4));
+  a.c_off = sc_plan ? sc_plan : gc_off;
+  a.c_ent = sc_plan ? sc_plan + B + 1 : gc_ent;
+  a.j_off = sj_plan ? sj_plan : gj_off;
+  a.j_ent = sj_plan ? sj_plan + B + 1 : gj_ent;
+
+  for (int c = tid; c < C; c += nt) {
+    const int* ci = cint + c * 4;
+    const int g = contact_group(ci, K);
+    if (g < 0) continue;
+    const int pos = atomicAdd(a.ccur + g, 1);
+    a.clist[pos] = c;
+    if (pos < a.ncap_c) {
+      const long long row = (long long)w * C + c;
+      const float* f = p.cfields + row * kNF;
+      float* d = a.scf + pos * S::ncol;
+#pragma unroll
+      for (int k = 0; k < kNF; ++k)
+        if (S::reads(k)) d[S::col(k)] = f[k];
+      for (int q = 0; q < 2; ++q) {
+        a.scimp[q * a.ncap_c + pos] = p.n0[row * 2 + q];
+        a.scimp[(2 + q) * a.ncap_c + pos] = p.t0[row * 2 + q];
+      }
+      a.sci[pos] = ci[0];
+      a.sci[a.ncap_c + pos] = ci[1];
+      a.sci[2 * a.ncap_c + pos] = ci[3];
+    }
+  }
+  for (int j = tid; j < J; j += nt) {
+    const int* ji = jint + j * 4;
+    const int g = joint_group(ji, KJ);
+    if (g < 0) continue;
+    const int pos = atomicAdd(a.jcur + g, 1);
+    a.jlist[pos] = j;
+    if (pos < a.ncap_j) {
+      const long long row = (long long)w * J + j;
+      const float* f = p.jfields + row * kNJF;
+      float* d = a.sjf + pos * kNJF;
+      for (int k = 0; k < kNJF; ++k) d[k] = f[k];
+      for (int q = 0; q < 5; ++q) a.sjimp[q * a.ncap_j + pos] = p.jimp0[row * 5 + q];
+      a.sji[pos] = ji[0];
+      a.sji[a.ncap_j + pos] = ji[1];
+      a.sji[2 * a.ncap_j + pos] = ji[3];
+    }
+  }
+  if (sc_plan)
+    for (int i = tid; i < B + 1 + 2 * C; i += nt) sc_plan[i] = i <= B ? gc_off[i] : gc_ent[i - B - 1];
+  if (sj_plan)
+    for (int i = tid; i < B + 1 + 2 * J; i += nt) sj_plan[i] = i <= B ? gj_off[i] : gj_ent[i - B - 1];
+  barrier(a);
 
   if constexpr (S::pgs) {
     integrate_velocities(p, a);
@@ -635,7 +901,32 @@ __global__ void fused_solve_kernel(Params p) {
       if (p.relax) solve_passes<S, false>(p, a);
     }
   }
-  for (int i = threadIdx.x; i < B * 8; i += blockDim.x) p.bs_out[bo + i] = a.sbs[i];
+  for (int pos = tid; pos < a.ncap_c; pos += nt) {
+    const long long r = ((long long)w * C + a.clist[pos]) * 2;
+    for (int q = 0; q < 2; ++q) {
+      p.n_out[r + q] = a.scimp[q * a.ncap_c + pos];
+      p.t_out[r + q] = a.scimp[(2 + q) * a.ncap_c + pos];
+    }
+  }
+  for (int pos = tid; pos < a.ncap_j; pos += nt) {
+    const long long r = ((long long)w * J + a.jlist[pos]) * 5;
+    for (int q = 0; q < 5; ++q) p.jimp_out[r + q] = a.sjimp[q * a.ncap_j + pos];
+  }
+  for (int i = tid; i < B * 8; i += nt) p.bs_out[bo + i] = a.sbs[i];
+  if (tid == 0 && p.phases) p.phases[w] = a.phases;
+}
+
+const void* kernel_for(int script) {
+  switch (script) {
+    case 0:
+      return (const void*)fused_solve_kernel<ScriptTgsSoft>;
+    case 1:
+      return (const void*)fused_solve_kernel<ScriptSoftStep>;
+    case 2:
+      return (const void*)fused_solve_kernel<ScriptPgsSoft>;
+    default:
+      return nullptr;
+  }
 }
 
 template <class S>
@@ -644,28 +935,33 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(fused_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_solve_kernel<S><<<p.W, 256, smem, stream>>>(p);
+  fused_solve_kernel<S><<<p.W, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes. Launches one block a world of `script`
-// (0 TGS_Soft, 1 SoftStep, 2 PGS_Soft) on `stream`; returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an
-// unknown script. `relax` counts the relax passes: a substep's (0 or 1) in
-// the substep loop, all of them in the PGS loop.
+// (0 TGS_Soft, 1 SoftStep, 2 PGS_Soft) on `stream` with B * 64 +
+// `stage_bytes` bytes of shared memory; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for an unknown script. `relax` counts
+// the relax passes: a substep's (0 or 1) in the substep loop, all of them
+// in the PGS loop. `iscratch` holds [W, s2t_fused_scratch_ints(C, J)]
+// ints; `phases` (or null) receives each world's barrier count.
 extern "C" int s2t_fused_solve(const float* body_const, const float* bs0, const float* cfields, const int* cint,
                                const float* n0, const float* t0, const float* jfields, const int* jint,
                                const float* jimp0, const int* c_off, const int* c_ent, const int* j_off,
                                const int* j_ent, const float* scal, float* bs_out, float* n_out, float* t_out,
-                               float* jimp_out, float* cdelta, float* jdelta, int W, int B, int C, int J, int K,
-                               int KJ, int script, int substeps, int relax, int warm_start, void* stream) {
+                               float* jimp_out, float* cdelta, float* jdelta, int* iscratch, int* phases, int W,
+                               int B, int C, int J, int K, int KJ, int script, int substeps, int relax,
+                               int warm_start, int stage_bytes, void* stream) {
   if (W == 0) return 0;
-  Params p{body_const, bs0,  cfields, cint,   n0,     t0, jfields, jint,     jimp0,      c_off,
-           c_ent,      j_off, j_ent,   scal,   bs_out, n_out, t_out, jimp_out, cdelta, jdelta,
-           W,          B,     C,       J,      K,      KJ, substeps, relax,   warm_start};
-  const size_t smem = (size_t)B * 16 * sizeof(float);
+  if (K > kMaxColors || KJ > kMaxColors || stage_bytes < 0) return (int)cudaErrorInvalidValue;
+  Params p{body_const, bs0,      cfields, cint,  n0,       t0,       jfields, jint,     jimp0,
+           c_off,      c_ent,    j_off,   j_ent, scal,     bs_out,   n_out,   t_out,    jimp_out,
+           cdelta,     jdelta,   iscratch, phases, W,      B,        C,       J,        K,
+           KJ,         substeps, relax,   warm_start, stage_bytes & ~15};
+  const size_t smem = (size_t)B * 16 * sizeof(float) + (size_t)p.stage_bytes;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (script) {
     case 0:
@@ -677,4 +973,39 @@ extern "C" int s2t_fused_solve(const float* body_const, const float* bs0, const 
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// ints of iscratch a world
+extern "C" int s2t_fused_scratch_ints(int C, int J) { return kScratchHead + C + J; }
+
+// the stage_bytes that stage all of a world of B bodies, C contact and J
+// joint slots in `script` (the carve of fused_solve_kernel), or -1
+extern "C" int s2t_fused_stage_bytes(int script, int B, int C, int J) {
+  if (script < 0 || script > 2) return -1;
+  const int ncol = script == 0 ? ScriptTgsSoft::ncol : script == 1 ? ScriptSoftStep::ncol : ScriptPgsSoft::ncol;
+  auto a16 = [](int n) { return (n + 15) & ~15; };
+  return 4 * a16(kGroups * 4) + a16(C * 4) + a16(J * 4) + C * (ncol + 7) * 4 + 48 + J * (kNJF + 8) * 4 + 48 +
+         a16(2 * C * 12) + a16(2 * J * 12) + a16((B + 1 + 2 * C) * 4) + a16((B + 1 + 2 * J) * 4);
+}
+
+// The compiled kernel of `script`: out[0] registers a thread, out[1] local
+// (spill) bytes a thread, out[2] resident blocks an SM with `smem` bytes of
+// dynamic shared memory. Returns a cudaError_t.
+extern "C" int s2t_fused_attrs(int script, int smem, int* out) {
+  const void* fn = kernel_for(script);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaFuncAttributes at;
+  cudaError_t e = cudaFuncGetAttributes(&at, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  out[2] = blocks;
+  return 0;
 }

@@ -28,8 +28,22 @@ def load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.s2t_collide_lanes.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
         lib.s2t_collide_lanes.restype = i
+        lib.s2t_collide_attrs.argtypes = [i, p]
+        lib.s2t_collide_attrs.restype = i
         _lib = lib
     return _lib
+
+
+def attributes(W: int) -> dict:
+    """The compiled kernel that a batch of W worlds launches: registers a
+    thread, shared memory a block, spill bytes a thread, resident blocks an
+    SM, and its block's tile (slots x worlds)."""
+    out = (ctypes.c_int * 6)()
+    rc = load().s2t_collide_attrs(W, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"K2 attributes: cudaError {rc}")
+    return dict(registers=out[0], smem_bytes=out[1], spill_bytes=out[2], blocks_per_sm=out[3],
+                tile=(out[4], out[5]))
 
 
 def _check(t, name, dtype, shape, device):
@@ -63,6 +77,8 @@ def collide(geom, sa, sb, pa, pb, cache, gjk_iters: int):
     _check(cache, "cache", torch.int32, (W, 7, C), dev)
     if W * C >= 2**31:
         raise ValueError("collide: W * C must fit int32")
+    if geom.data_ptr() % 8:
+        raise ValueError("geom: the kernel reads its rows in 8-byte loads; its data must be 8-byte aligned")
     lib = load()
     fout = torch.empty((W, 12, C), dtype=torch.float32, device=dev)
     iout = torch.empty((W, 3, C), dtype=torch.int32, device=dev)

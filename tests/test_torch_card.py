@@ -96,6 +96,25 @@ def test_kernel_matches_twin_cold_and_warm(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,W", [(517, 1), (333, 3), (333, 9)])
+def test_kernel_matches_twin_ragged_tiles(card, n, W):
+    """Slot and world counts that are no multiple of a block's tile (128
+    slots at W < 8, 32 slots x 8 worlds above), mixed shapes in every warp,
+    and a cache with indices outside [0, 8)."""
+    args = [x.to(card) for x in _random_pairs(n, W, seed=n + W)]
+    kinds = args[0][:, 32][args[1][:32]].cpu().int().tolist()
+    assert len(set(kinds)) > 1  # circles, capsules and polygons side by side in the first warp
+    want = collide_lanes_plain(*args, GJK_ITERS)
+    _same(narrow_cuda.collide(*args, GJK_ITERS), want)
+    args[5] = want[2]
+    _same(narrow_cuda.collide(*args, GJK_ITERS), collide_lanes_plain(*args, GJK_ITERS))
+    g = torch.Generator().manual_seed(W)
+    args[5] = torch.randint(-2, 11, args[5].shape, generator=g, dtype=torch.int32).to(card)
+    _same(narrow_cuda.collide(*args, GJK_ITERS), collide_lanes_plain(*args, GJK_ITERS))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     geom, sa, sb, pa, pb, cache = (x.to(card) for x in _random_pairs(64, 2, seed=1))
     with pytest.raises(ValueError):
@@ -104,6 +123,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         narrow_cuda.collide(geom, sa, sb, pa.transpose(1, 2), pb, cache, GJK_ITERS)
     with pytest.raises(ValueError):
         narrow_cuda.collide(geom, sa.cpu(), sb, pa, pb, cache, GJK_ITERS)
+    with pytest.raises(ValueError):  # rows 4-byte aligned only
+        narrow_cuda.collide(torch.cat([geom.new_zeros(1), geom.flatten()])[1:].view_as(geom), sa, sb, pa, pb, cache,
+                            GJK_ITERS)
 
 
 # ------------------------------------------------------------ K1
@@ -113,14 +135,26 @@ def _k1_inputs(scene, W, dev, steps=2, solver="TGS_SOFT"):
     """The fused solve's inputs after `steps` steps of W worlds of a small
     scene of the per-world path under `solver`, the worlds' velocities
     jittered apart. The Bridge's mouse joint is held from the ground, or
-    from plank 11, a dynamic body ("bridge_dyn_a")."""
-    from solver2d_tpu_torch import SolverType, batched_step, bridge, pyramid_world, replicate
+    from plank 11, a dynamic body ("bridge_dyn_a"). "bridge_boxes" rests
+    three boxes on a Bridge (live contacts and joints in one world);
+    "sparse" is one box on the ground with 12 colors, most of them empty."""
+    from solver2d_tpu_torch import BodyType, SolverType, batched_step, bridge, pyramid_world, replicate
     from solver2d_tpu_torch.solvers.loops import fused_static
     from solver2d_tpu_torch.step import prepare
 
     if scene == "pyramid":
         world, _ = pyramid_world(SolverType[solver], 8)
         kw = dict(max_colors=10, gjk_iters=10)
+    elif scene == "bridge_boxes":
+        world, planks = bridge(SolverType[solver], 24)
+        for i in (4, 11, 18):
+            x, y = world.bodies[planks[i]].def_.position
+            box = world.create_body(type=BodyType.DYNAMIC, position=(x, y + 0.125 + 0.25 + 0.004))
+            world.create_polygon_shape(box, geometry.box(0.25, 0.25), friction=0.6)
+        kw = dict(max_colors=8)
+    elif scene == "sparse":
+        world, _ = pyramid_world(SolverType[solver], 1)
+        kw = dict(max_colors=12)
     else:
         world, planks = bridge(SolverType[solver], 24)
         x, y = world.bodies[planks[12]].def_.position
@@ -176,3 +210,99 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(card):
         fused_cuda.fused_solve(x, **{**static, "script": script._replace(fixed_warm=not script.fixed_warm)})
     with pytest.raises(ValueError):
         fused_cuda.fused_solve(x, **{**static, "relax": 2})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_SOFT"])
+def test_k1_more_worlds_than_sms(card, solver):
+    """With more worlds than SMs, K1's default staging capacity is the
+    largest at which 2 blocks share an SM, and the result is the twin's."""
+    from solver2d_tpu_torch.solvers import fused_cuda
+    from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
+    from solver2d_tpu_torch.world import K1_BODY_BYTES, K1_SMEM_BYTES
+
+    x, static = _k1_inputs("pyramid", 8, card, solver=solver)
+    reps = torch.cuda.get_device_properties(card).multi_processor_count // 8 + 1
+    x = x._replace(**{f: getattr(x, f).repeat(reps, *[1] * (getattr(x, f).dim() - 1))
+                      for f in x._fields if f != "scal"})
+    script = static["script"]
+    W, B = x.bs.shape[:2]
+    C, J = x.cint.shape[1], x.jint.shape[1]
+    cap = fused_cuda.stage_bytes_for(script, B, 2)
+    assert fused_cuda.attributes(script, cap, B)["blocks_per_sm"] >= 2
+    if cap + 16 <= K1_SMEM_BYTES - B * K1_BODY_BYTES:
+        assert fused_cuda.attributes(script, cap + 16, B)["blocks_per_sm"] < 2
+    full = fused_cuda.stage_bytes_default(script, B, C, J)
+    assert fused_cuda.stage_bytes_default(script, B, C, J, W, card) == min(full, cap)
+    got = fused_cuda.fused_solve(x, **static)
+    want = fused_solve_plain(x, **static)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _k1_phases(x, static):
+    """The barriers K1 takes on x: 4 to build its lists, then per pass one a
+    color with a listed constraint, two a warm start with any, one an
+    integrate (csrc/fused_solve.cu)."""
+    ca, cw, color = x.cint[..., 3] & 4 != 0, x.cint[..., 3] & 32 != 0, x.cint[..., 2]
+    ja, jw, jcolor = x.jint[..., 3] & 2 != 0, x.jint[..., 3] & 64 != 0, x.jint[..., 2]
+    K, KJ = static["n_colors"], static["n_joint_colors"]
+    listed_c = ca & cw & (color >= 0) & (color < K)
+    planned_j = ja & jw & (jcolor >= 0)
+    listed_j = planned_j & (jcolor < KJ)
+    out = []
+    for w in range(x.cint.shape[0]):
+        colors = len(set(color[w][listed_c[w]].tolist())) + len(set(jcolor[w][listed_j[w]].tolist()))
+        warm = 2 * int(bool(ca[w].any())) + 2 * int(bool(planned_j[w].any())) if static["warm_start"] else 0
+        if static["script"].loop == "substep":
+            out.append(4 + static["substeps"] * (2 + warm + colors * (1 + static["relax"])))
+        else:
+            out.append(4 + 2 + warm + colors * (static["substeps"] + static["relax"]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["none", "small", "full"])
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "SOFT_STEP", "PGS_SOFT"])
+def test_k1_staging_capacity_leaves_the_result(card, solver, stage):
+    """Whatever share of its rows K1 stages in shared memory (none, a few,
+    all), it equals its twin, on a world with live contacts and joints."""
+    from solver2d_tpu_torch.solvers import fused_cuda
+    from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
+
+    x, static = _k1_inputs("bridge_boxes", 4, card, solver=solver)
+    assert bool((x.cint[..., 3] & 4 != 0).any()) and bool((x.jint[..., 3] & 2 != 0).any())
+    B, C, J = x.bs.shape[1], x.cint.shape[1], x.jint.shape[1]
+    full = fused_cuda.stage_bytes_default(static["script"], B, C, J)
+    nbytes = {"none": 0, "small": 2048, "full": full}[stage]
+    phases = torch.empty(x.bs.shape[0], dtype=torch.int32, device=x.bs.device)
+    got = fused_cuda.fused_solve(x, **static, stage_bytes=nbytes, phases=phases)
+    want = fused_solve_plain(x, **static)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert phases.cpu().tolist() == _k1_phases(x, static)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_SOFT"])
+def test_k1_skips_empty_colors(card, solver):
+    """A world that uses few of its colors: K1 takes a barrier only for the
+    colors with constraints, and still equals its twin."""
+    from solver2d_tpu_torch.solvers import fused_cuda
+    from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
+
+    x, static = _k1_inputs("sparse", 2, card, solver=solver)
+    used = set(x.cint[..., 2][(x.cint[..., 3] & 36) == 36].tolist())
+    assert 0 < len(used) < static["n_colors"]
+    phases = torch.empty(x.bs.shape[0], dtype=torch.int32, device=x.bs.device)
+    got = fused_cuda.fused_solve(x, **static, phases=phases)
+    want = fused_solve_plain(x, **static)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    phases = phases.cpu().tolist()
+    assert phases == _k1_phases(x, static)
+    full_scan = 4 + static["substeps"] * (1 + 4 + 2 * (static["n_colors"] + static["n_joint_colors"]) + 1)
+    assert phases[0] < full_scan
