@@ -23,7 +23,13 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    shapes of paths (b) and (a), and K1's barrier count and time a barrier.
    A kernel's time is that of its launches replayed back to back from a
    CUDA graph (`kernel_ms`), printed beside the time a call by CUDA
-   events, which also holds the wrapper's host work;
+   events, which also holds the wrapper's host work. At the catalog's
+   shapes: K2 on the contact tables of Confined, Ragdoll Stress, Far
+   Stack, Card House and Far Recovery after K2_CATALOG_STEPS steps of
+   CATALOG_WORLDS worlds (circles, capsules, segments, far origins, thin
+   boxes), and K1 in each script on Ragdoll Stress after K1_CATALOG_STEPS
+   steps, when live contacts, limits and motors share a launch; each with
+   its time and its bound on that data;
 4. the lane path: `step_batch` on 512 worlds x 1954 bodies at the bench
    configuration (TGS_Soft, 4 substeps + relax, 9 colors, bucket cap 896,
    GJK 10), WARMUP + STEPS steps with every launch counter reset first;
@@ -39,7 +45,19 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    (MAX_DRIFT_B), K1 and K2 once a step;
 7. path (a): 32 Bridges (8 colors), WARMUP + STEPS steps under each fused
    solver: finite, no color overflow, joints hold (joint_error below
-   MAX_JOINT_ERROR_A), K1 once a step.
+   MAX_JOINT_ERROR_A), K1 once a step;
+8. the catalog: every registered scene at its published size (Joint Grid
+   cut to the largest square grid under K1's body cap), CATALOG_WORLDS
+   worlds with jittered velocities, TGS_Soft with the scene's hooks;
+   Ragdoll Stress, Confined and Rush also under SoftStep and PGS_Soft. The
+   first CATALOG_CHECK steps must equal the plain twins' on the CPU
+   (positions within phase 5's tolerance, colors and diagnostics equal);
+   then each scene runs on to its length (CATALOG_RUN): finite, K1 and K2
+   once a step, no pair overflow in world 0 (the unjittered scene) outside
+   PAIR_OVERFLOW_SCENES, Warm Start Energy's step-120 event fired, and
+   CATALOG_BOUNDS met (Vertical Stack stands, Overlap Recovery separates,
+   Ragdoll Stress holds its joints).
+   Each scene's ms/step and world-steps/s after those first steps.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is `{"ok": true, "device": {...}}`.
@@ -84,6 +102,47 @@ MAX_JOINT_ERROR_A = {"TGS_SOFT": 0.0098, "SOFT_STEP": 2 * 0.002153, "PGS_SOFT": 
 # bound is twice that; a collapsing pyramid moves boxes by a box size (1.0)
 # or more.
 MAX_DRIFT = 0.5
+# Phase 8, the catalog: every registered scene at its published size (Joint
+# Grid cut to K1's body cap), CATALOG_WORLDS worlds with velocities
+# jittered by world index x JITTER, the first CATALOG_CHECK steps compared
+# with the plain twins on the CPU, then the card alone to CATALOG_RUN steps
+# (CATALOG_CHECK + STEPS unless listed)
+CATALOG_WORLDS = 4
+JITTER = 0.05
+CATALOG_CHECK = 3
+CATALOG_RUN = {
+    ("Contact", "Vertical Stack"): 240, ("Contact", "Overlap Recovery"): 120,
+    ("Contact", "Warm Start Energy"): 125, ("Joints", "Ragdoll Stress"): 60,
+}
+# the scenes also run under the other fused solvers
+CATALOG_ALL_SOLVERS = (("Joints", "Ragdoll Stress"), ("Contact", "Confined"), ("Contact", "Rush"))
+# scenes whose pair table overflows at default capacities in the JAX package
+# too (TESTLOG_r05.txt:29-30): gated on equality with the CPU twins only.
+# The other scenes must not overflow in world 0, the unjittered scene (a
+# jittered Vertical Stack may topple, and its tilted boxes overflow the
+# big-shape list sized for the upright stack)
+PAIR_OVERFLOW_SCENES = (("Contact", "Card House"), ("Far", "Ragdoll Pile"), ("Joints", "Ragdoll Stress"))
+# 4 float32 ulps of a coordinate: the card-vs-CPU tolerance's share on the
+# Far scenes, whose coordinates reach 1e5 (ulp 0.0078)
+FAR_RTOL = 4 * 2.0**-23
+# Bounds of world 0 (the unjittered scene) at the end of its run: twice the
+# JAX package's on the CPU at the same configuration and step count
+# (tools/jax_world_bounds.py "Category/Name" STEPS TGS_SOFT): Vertical
+# Stack after 240 steps, max penetration 0.009975 and kinetic energy
+# 0.002514; Overlap Recovery after 120 steps, max penetration 0.002330;
+# Ragdoll Stress, the largest joint_error over 60 steps, 0.625976
+CATALOG_BOUNDS = {
+    (("Contact", "Vertical Stack"), "TGS_SOFT"): dict(max_penetration=2 * 0.009975, kinetic_energy=2 * 0.002514),
+    (("Contact", "Overlap Recovery"), "TGS_SOFT"): dict(max_penetration=2 * 0.002330),
+    (("Joints", "Ragdoll Stress"), "TGS_SOFT"): dict(joint_error=2 * 0.625976),
+}
+# phase 3's catalog inputs: K2 after K2_CATALOG_STEPS steps of these scenes
+# (Confined's circles reach its capsule walls at step 5); K1 in each script
+# after K1_CATALOG_STEPS steps of K1_CATALOG
+K2_CATALOG = (("Contact", "Confined"), ("Joints", "Ragdoll Stress"), ("Far", "Stack"), ("Contact", "Card House"),
+              ("Far", "Recovery"))
+K2_CATALOG_STEPS = 6
+K1_CATALOG, K1_CATALOG_STEPS = ("Joints", "Ragdoll Stress"), 40
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s, fp32 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
@@ -341,28 +400,65 @@ def k1_bytes(x, script, warm_start):
     return slots + contacts + joints_ + bodies + x.scal.numel() * 4
 
 
-def check_k1(name, state, cfg, W, dev, timed=True):
-    """K1 against its twin on the inputs the per-world step hands it after 2
-    steps of W worlds under cfg.solver, and, if `timed`, K2 against its twin
-    on the path's flattened narrowphase inputs. Returns (max abs error,
-    kernel ms, twin ms, bound ms, bound_by, extras); the times, the bound
-    and the extras (K1's barriers, attributes and staging; K2's time and
-    bound at this shape) only if `timed`."""
+def check_k2_world(name, batch, cfg, card):
+    """K2 against its twin on the per-world step's narrowphase inputs of
+    `batch` (its worlds flattened into one lane batch), timed, with its
+    bound on this data. Returns (max abs err, kernel ms, twin ms, bound ms,
+    bound_by)."""
+    import torch
+
+    from solver2d_tpu_torch.ops import narrow_cuda
+    from solver2d_tpu_torch.ops.narrow_lanes import collide_lanes_plain
+    from solver2d_tpu_torch.step import world_narrow_inputs
+
+    args = world_narrow_inputs(batch, batch.contacts)
+    k2 = narrow_cuda.collide(*args, cfg.gjk_iters)
+    want2 = collide_lanes_plain(*args, cfg.gjk_iters)
+    work = k2_work(args, cfg.gjk_iters)
+    ops2 = k2_ops(work)
+    torch.cuda.synchronize()
+    err = float((k2[0] - want2[0]).abs().max()) if k2[0].numel() else 0.0
+    if not (torch.equal(k2[1], want2[1]) and torch.equal(k2[2], want2[2]) and err <= K2_ATOL):
+        fail(f"K2 disagrees with its plain twin at {name}")
+    k2_ms, k2_call = kernel_ms(lambda: narrow_cuda.collide(*args, cfg.gjk_iters))
+    p_ms = time_cuda(lambda: collide_lanes_plain(*args, cfg.gjk_iters), 2)
+    k2_b, k2_bb, k2_bo, k2_nb = k2_bound(args, ops2)
+    kinds = {1: "circle", 2: "capsule/segment"}
+    pairs = {}
+    live = (want2[1][0, 2] > 0) & batch.contacts.alive.reshape(-1)
+    for a, b in zip(work["ca"].reshape(-1)[live].tolist(), work["cb"].reshape(-1)[live].tolist()):
+        k = "-".join(sorted((kinds.get(a, "polygon"), kinds.get(b, "polygon"))))
+        pairs[k] = pairs.get(k, 0) + 1
+    print(f"[3] K2 at {name}'s flattened shape W={args[3].shape[0]} C={args[3].shape[2]}: within {err:.3e} of its "
+          f"twin (tol {K2_ATOL}), ids and caches equal; touching pairs by shapes {pairs}; {k2_ms:.4f} ms "
+          f"({k2_call:.4f} ms a call), plain twin {p_ms:.3f} ms; bound {k2_b:.5f} ms ({k2_nb / 1e6:.2f} MB -> "
+          f"{k2_bb:.5f} ms; at most {ops2 / 1e9:.4f} GFLOP -> {k2_bo:.5f} ms), {k2_b / k2_ms:.1%} of bound on {card}",
+          flush=True)
+    return err, k2_ms, p_ms, k2_b, "bytes" if k2_bb >= k2_bo else "operations"
+
+
+def check_k1(name, state, cfg, W, dev, card, timed=True, steps=2, scene=None, k2=True):
+    """K1 against its twin on the inputs the per-world step hands it after
+    `steps` steps of W worlds under cfg.solver (`state` one world, or a
+    batch of W if `scene` is given, stepped with the scene's hooks), and, if
+    `timed` and `k2`, K2 against its twin on the path's flattened
+    narrowphase inputs. Returns (max abs error, kernel ms, twin ms, bound
+    ms, bound_by, extras); the times, the bound and the extras (K1's
+    barriers, attributes and staging; K2's time and bound at this shape)
+    only if `timed`."""
     import torch
 
     from solver2d_tpu_torch import batched_step, replicate
-    from solver2d_tpu_torch.ops import narrow_cuda
-    from solver2d_tpu_torch.ops.narrow_lanes import collide_lanes_plain
     from solver2d_tpu_torch.solvers import contact_kernels as ck
     from solver2d_tpu_torch.solvers import fused_cuda, joints
     from solver2d_tpu_torch.solvers.fused_solve import unpack_cons, unpack_joints, fused_solve_plain
     from solver2d_tpu_torch.solvers.loops import fused_static
-    from solver2d_tpu_torch.step import prepare, world_narrow_inputs
+    from solver2d_tpu_torch.step import prepare
 
     step = batched_step(cfg)
-    batch = replicate(state, W)
-    for _ in range(2):
-        batch = step(batch, DT)
+    batch = state if scene is not None else replicate(state, W)
+    for i in range(steps):
+        batch = frame(scene, step, batch, i) if scene is not None else step(batch, DT)
     x = prepare(batch, DT, cfg).x
     static = fused_static(cfg)
     script = static["script"]
@@ -378,12 +474,18 @@ def check_k1(name, state, cfg, W, dev, timed=True):
     jflags = x.jint[..., 3]
     n_c = int(((flags & 4) != 0).sum())
     n_j = int(((jflags & 2) != 0).sum())
+    j = batch.joints
+    n_lim, n_mot = int((j.alive & j.enable_limit).sum()), int((j.alive & j.enable_motor).sum())
+    n_eng = int((j.alive & ((j.lower_impulse != 0) | (j.upper_impulse != 0))).sum())
     print(f"[3] K1 vs twin, {cfg.solver.name}, {name}: W={W} B={x.bs.shape[1]} C={x.cint.shape[1]} "
-          f"J={x.jint.shape[1]}, {n_c} active contacts, {n_j} live joints; max abs err bodies {errs[0]:.3e}, "
+          f"J={x.jint.shape[1]}, {n_c} active contacts, {n_j} live joints ({n_lim} limited, {n_eng} of them with a "
+          f"limit engaged last step, {n_mot} motored); max abs err bodies {errs[0]:.3e}, "
           f"normal impulses {errs[1]:.3e}, tangent impulses {errs[2]:.3e}, joint impulses {errs[3]:.3e} "
           f"(tol {K1_ATOL})", flush=True)
     if not err <= K1_ATOL:
         fail(f"K1 disagrees with its plain twin ({cfg.solver.name}, {name})")
+    if scene is not None and not (n_c and n_lim and n_mot):
+        fail(f"K1 ({name}): the launch lacks live contacts, limits or motors")
     if not timed:
         return err, None, None, None, None, {}
     k_ms, call_ms = kernel_ms(lambda: fused_cuda.fused_solve(x, **static))
@@ -403,21 +505,9 @@ def check_k1(name, state, cfg, W, dev, timed=True):
                   spill_bytes=attrs["spill_bytes"], smem_bytes=attrs["smem_bytes"], stage_bytes=stage,
                   blocks_per_sm=attrs["blocks_per_sm"])
 
-    # K2 at this path's shape (its worlds flattened into one lane batch)
-    args = world_narrow_inputs(batch, batch.contacts)
-    k2 = narrow_cuda.collide(*args, cfg.gjk_iters)
-    want2 = collide_lanes_plain(*args, cfg.gjk_iters)
-    ops2 = k2_ops(k2_work(args, cfg.gjk_iters))
-    torch.cuda.synchronize()
-    if not (torch.equal(k2[1], want2[1]) and torch.equal(k2[2], want2[2])
-            and float((k2[0] - want2[0]).abs().max()) <= K2_ATOL):
-        fail(f"K2 disagrees with its plain twin at path {name}")
-    k2_ms, k2_call = kernel_ms(lambda: narrow_cuda.collide(*args, cfg.gjk_iters))
-    k2_b, k2_bb, k2_bo, k2_nb = k2_bound(args, ops2)
-    print(f"[3] K2 at {name}'s flattened shape W={args[3].shape[0]} C={args[3].shape[2]}: equal to its twin, "
-          f"{k2_ms:.4f} ms ({k2_call:.4f} ms a call); bound {k2_b:.5f} ms ({k2_nb / 1e6:.2f} MB -> {k2_bb:.5f} ms; "
-          f"at most {ops2 / 1e9:.4f} GFLOP -> {k2_bo:.5f} ms), {k2_b / k2_ms:.1%} of bound", flush=True)
-    extras.update(k2_ms=k2_ms, k2_bound_ms=k2_b, k2_bound_by="bytes" if k2_bb >= k2_bo else "operations")
+    if k2:  # K2 at this path's shape (its worlds flattened into one lane batch)
+        _, k2_ms, _, k2_b, k2_by = check_k2_world(name, batch, cfg, card)
+        extras.update(k2_ms=k2_ms, k2_bound_ms=k2_b, k2_bound_by=k2_by)
 
     # the bound: the bytes this run's data needs moved once, and the
     # operations of the constraint solves it needs (each active winner
@@ -449,8 +539,146 @@ def check_k1(name, state, cfg, W, dev, timed=True):
     print(f"[3] K1 {cfg.solver.name} {name}: {k_ms:.4f} ms ({call_ms:.4f} ms a call), plain twin {p_ms:.3f} ms; "
           f"bound {bound:.5f} ms "
           f"({nbytes / 1e6:.3f} MB -> {bytes_ms:.5f} ms; {ops / 1e9:.5f} GFLOP in {passes} passes -> "
-          f"{ops_ms:.5f} ms), {bound / k_ms:.1%} of bound", flush=True)
+          f"{ops_ms:.5f} ms), {bound / k_ms:.1%} of bound on {card}", flush=True)
     return err, k_ms, p_ms, bound, "bytes" if bytes_ms >= ops_ms else "operations", extras
+
+
+def joint_grid_side():
+    """The side of the largest square Joint Grid whose world fits K1's body
+    cap (the published grid, 100 x 100, waits for ROADMAP item 5)."""
+    from solver2d_tpu_torch.world import K1_BODY_BYTES, K1_SMEM_BYTES
+
+    n = 1
+    while (((n + 1) ** 2 + 2 + 7) // 8) * 8 * K1_BODY_BYTES <= K1_SMEM_BYTES:
+        n += 1
+    return n
+
+
+def catalog_scene(key, solver):
+    """A registered scene at its published size, Joint Grid cut to
+    `joint_grid_side()` squared."""
+    from solver2d_tpu_torch import SolverType
+    from solver2d_tpu_torch.models import SCENES
+
+    n = joint_grid_side()
+    args = dict(numk=n, numi=n) if key == ("Joints", "Joint Grid") else {}
+    return SCENES[key](SolverType[solver], **args)
+
+
+def catalog_batch(scene, dev, worlds=CATALOG_WORLDS):
+    """(batch on dev, the same batch on the CPU, config): `worlds` copies of
+    the frozen scene, world i's dynamic bodies' velocities jittered by
+    i * JITTER * N(0, 1) from a seeded generator."""
+    import torch
+
+    from solver2d_tpu_torch import replicate
+
+    state, cfg = scene.freeze(device="cpu")
+    batch = replicate(state, worlds)
+    g = torch.Generator().manual_seed(0)
+    b = batch.bodies
+    scale = JITTER * torch.arange(worlds, dtype=torch.float32)
+    dv = torch.randn(b.v.shape, generator=g) * scale[:, None, None]
+    dw = torch.randn(b.w.shape, generator=g) * scale[:, None]
+    dyn = b.type == 2
+    b.v = torch.where(dyn[..., None], b.v + dv, b.v)
+    b.w = torch.where(dyn, b.w + dw, b.w)
+    return batch.to(dev), batch, cfg
+
+
+def frame(scene, step, batch, i):
+    """Frame i of a scene: its pre_step and on_step hooks, then one step."""
+    if scene.pre_step is not None:
+        batch = scene.pre_step(batch)
+    if scene.on_step is not None:
+        new = scene.on_step(batch, i)
+        if new is not None:
+            batch = new
+    return step(batch, DT)
+
+
+def card_vs_cpu(gpu, cpu, far):
+    """(largest position difference, within tolerance, colors equal,
+    diagnostics equal) of a batch stepped on the card against the same
+    steps through the plain twins on the CPU. The position tolerance is
+    phase 5's 1e-4, plus FAR_RTOL of the coordinate on the Far scenes."""
+    import torch
+
+    g, c = gpu.bodies.position.cpu(), cpu.bodies.position
+    diff = (g - c).abs()
+    close = bool((diff <= 1e-4 + (FAR_RTOL * c.abs() if far else 0.0)).all())
+    colors = bool(torch.equal(gpu.contacts.color.cpu(), cpu.contacts.color)
+                  and torch.equal(gpu.joints.color.cpu(), cpu.joints.color))
+    diag = all(torch.equal(getattr(gpu.diag, k).cpu(), getattr(cpu.diag, k))
+               for k in ("color_overflow", "pair_overflow", "contact_count", "pair_count"))
+    return float(diff.max()), close, colors, diag
+
+
+def run_catalog_scene(key, solver, dev, card, counters):
+    """Phase 8 for one scene under one solver: CATALOG_WORLDS worlds, the
+    first CATALOG_CHECK steps on the card and through the twins on the CPU,
+    compared; then the card alone to the scene's run length, timed after
+    those steps; launches, finiteness and the scene's bounds. Returns a
+    dict of its figures."""
+    import torch
+
+    from solver2d_tpu_torch import batched_step
+    from solver2d_tpu_torch.utils.metrics import joint_error, kinetic_energy
+
+    scene = catalog_scene(key, solver)
+    gpu, cpu, cfg = catalog_batch(scene, dev)
+    step = batched_step(cfg)
+    n = CATALOG_RUN.get(key, CATALOG_CHECK + STEPS)
+    for i in range(CATALOG_CHECK):
+        cpu = frame(scene, step, cpu, i)
+    for c in counters:
+        c.launches = 0
+    worst_joint = torch.zeros(CATALOG_WORLDS, device=dev)
+    for i in range(CATALOG_CHECK):
+        gpu = frame(scene, step, gpu, i)
+        worst_joint = torch.maximum(worst_joint, joint_error(gpu))
+    err, close, colors, diag = card_vs_cpu(gpu, cpu, "origin" in scene.meta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CATALOG_CHECK, n):
+        gpu = frame(scene, step, gpu, i)
+        worst_joint = torch.maximum(worst_joint, joint_error(gpu))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (n - CATALOG_CHECK) * 1e3
+    launches = [c.launches for c in counters]
+    d = gpu.diag
+    b = gpu.bodies
+    out = dict(
+        scene=f"{key[0]}/{key[1]}", solver=solver, bodies=int(b.alive[0].sum()), shapes=int(gpu.shapes.alive[0].sum()),
+        joints=int(gpu.joints.alive[0].sum()), steps=n, ms_per_step=ms, world_steps_per_s=CATALOG_WORLDS / ms * 1e3,
+        err=err, colors_equal=colors, diag_equal=diag, k1_launches=launches[0], k2_launches=launches[1],
+        contacts=int(d.contact_count[0]), color_overflow=int(d.color_overflow.max()),
+        pair_overflow=bool(d.pair_overflow.any()), max_penetration=float(d.max_penetration[0]),
+        kinetic_energy=float(kinetic_energy(gpu)[0]), joint_error=float(worst_joint[0]),
+        joint_error_all=float(worst_joint.max()),
+    )
+    reduced = f", reduced to {scene.meta['numk']} x {scene.meta['numi']}" if key == ("Joints", "Joint Grid") else ""
+    print(f"[8] {out['scene']} {solver}{reduced}: {out['bodies']} bodies, {out['shapes']} shapes, {out['joints']} "
+          f"joints, {CATALOG_WORLDS} worlds; {CATALOG_CHECK} steps card vs CPU twins: position err {err:.3e}, colors "
+          f"equal {colors}, diagnostics equal {diag}; after {n} steps: contacts {out['contacts']}, color_overflow max "
+          f"{out['color_overflow']}, pair_overflow any {out['pair_overflow']}, world 0 max penetration "
+          f"{out['max_penetration']:.6f}, kinetic energy {out['kinetic_energy']:.6f}, largest joint_error world 0 "
+          f"{out['joint_error']:.6f}, any world {out['joint_error_all']:.6f}; K1 {launches[0]}, K2 {launches[1]} "
+          f"launches; {ms:.2f} ms/step, {out['world_steps_per_s']:.1f} world-steps/s on {card}", flush=True)
+    if not finite(b):
+        fail(f"{out['scene']} {solver}: non-finite body state")
+    if not (close and colors and diag):
+        fail(f"{out['scene']} {solver}: the card disagrees with the CPU twins")
+    if launches != [n, n]:
+        fail(f"{out['scene']} {solver}: K1 launched {launches[0]}, K2 {launches[1]} times in {n} steps")
+    if bool(d.pair_overflow[0]) and key not in PAIR_OVERFLOW_SCENES:
+        fail(f"{out['scene']} {solver}: pair table overflow in world 0")
+    for metric, bound in CATALOG_BOUNDS.get((key, solver), {}).items():
+        if not out[metric] < bound:
+            fail(f"{out['scene']} {solver}: {metric} {out[metric]} >= its bound {bound}")
+    if key == ("Contact", "Warm Start Energy") and bool(b.alive[:, scene.meta["top"]].any()):
+        fail("Warm Start Energy: the top circle outlived its step-120 event")
+    return out
 
 
 def run_path(label, step, batch, n_worlds, card, counters):
@@ -493,6 +721,9 @@ def main():
         fail("run from the root of a checkout: solver2d_tpu_torch/ is missing")
     sys.path.insert(0, here)
     dev = torch.device("cuda", 0)
+    # the CPU runs of the plain twins (phases 5 and 8) are thousands of ops
+    # on small tensors: one thread each is several times faster than a pool
+    torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -565,7 +796,7 @@ def main():
     print(f"[3] K2 {k2_ms:.4f} ms ({k2_call:.4f} ms a call), plain twin {plain_ms:.3f} ms; "
           f"bound {k2_lane_bound:.3f} ms "
           f"({k2_bytes / 1e9:.3f} GB -> {bytes_ms:.3f} ms; at most {k2_flops / 1e9:.2f} GFLOP "
-          f"-> {ops_ms:.3f} ms), {k2_lane_bound / k2_ms:.1%} of bound", flush=True)
+          f"-> {ops_ms:.3f} ms), {k2_lane_bound / k2_ms:.1%} of bound on {card}", flush=True)
     sat_share, mixed_share, trips_mean, trips_max = k2_paths(work)
     print(f"[3] K2 on the lane scene: {sat_share:.1%} of slots take SAT, {mixed_share:.1%} of warps mix SAT with "
           f"another path; GJK trips a slot mean {trips_mean:.2f}, max {trips_max} of {cfg.gjk_iters}",
@@ -578,11 +809,31 @@ def main():
     k1 = {}
     for solver in FUSED:
         k1[solver] = [
-            check_k1(f"(b) {W_B} x base-{BASE_B} pyramid", *pyramid_b(dev, solver), W_B, dev),
-            check_k1(f"(a) {W_A} x Bridge + mouse joint", *bridge_a(dev, solver, "ground"), W_A, dev),
+            check_k1(f"(b) {W_B} x base-{BASE_B} pyramid", *pyramid_b(dev, solver), W_B, dev, card),
+            check_k1(f"(a) {W_A} x Bridge + mouse joint", *bridge_a(dev, solver, "ground"), W_A, dev, card),
             check_k1(f"(a) {W_A} x Bridge + mouse joint on dynamic plank 79", *bridge_a(dev, solver, "plank"),
-                     W_A, dev, timed=False),
+                     W_A, dev, card, timed=False),
         ]
+    torch.cuda.empty_cache()
+
+    # the catalog's shapes: K2 on the contact tables of catalog scenes after
+    # a few steps (circles and capsules, segments, far origins, thin boxes);
+    # K1 in each script on Ragdoll Stress once its humans reach the paddles
+    k2_catalog, k1_catalog = {}, {}
+    for key in K2_CATALOG:
+        scene = catalog_scene(key, "TGS_SOFT")
+        batch, _, cfg_c = catalog_batch(scene, dev)
+        step_c = batched_step(cfg_c)
+        for i in range(K2_CATALOG_STEPS):
+            batch = frame(scene, step_c, batch, i)
+        k2_catalog[key] = check_k2_world(f"{key[0]}/{key[1]} ({CATALOG_WORLDS} worlds, {K2_CATALOG_STEPS} steps)",
+                                         batch, cfg_c, card)
+    for solver in FUSED:
+        scene = catalog_scene(K1_CATALOG, solver)
+        batch, _, cfg_c = catalog_batch(scene, dev)
+        k1_catalog[solver] = check_k1(f"{K1_CATALOG[1]} after {K1_CATALOG_STEPS} steps", batch, cfg_c,
+                                      CATALOG_WORLDS, dev, card, steps=K1_CATALOG_STEPS, scene=scene, k2=False)
+    del batch
     torch.cuda.empty_cache()
 
     # ---- 4. the lane path
@@ -710,17 +961,29 @@ def main():
             fail(f"path (a), {solver}: K1 launched {k1_a_launches} times in {WARMUP + STEPS} steps")
         del batch
         torch.cuda.empty_cache()
-    print(f"[8] ms/step: lane path {ms_step:.2f}; " + "; ".join(
+    print(f"[4-7] ms/step: lane path {ms_step:.2f}; " + "; ".join(
         f"{solver} path (b) {ms_b[solver]:.2f}, path (a) {ms_a[solver]:.2f}" for solver in FUSED) + f" on {card}",
         flush=True)
 
+    # ---- 8. the catalog
+    from solver2d_tpu_torch import scene_names
+
+    catalog = []
+    for key in scene_names():
+        for solver in FUSED if key in CATALOG_ALL_SOLVERS else ("TGS_SOFT",):
+            catalog.append(run_catalog_scene(key, solver, dev, card, [fused_cuda.fused_solve, narrow_cuda.collide]))
+            torch.cuda.empty_cache()
+    print(f"[8] catalog: {len(catalog)} scene runs, every check passed; ms/step " + "; ".join(
+        f"{r['scene']} {r['solver']} {r['ms_per_step']:.2f}" for r in catalog) + f" on {card}", flush=True)
+
+    k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()])
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "K2 narrowphase", "route": "cuda",
             "source": "solver2d_tpu_torch/csrc/narrow.cu",
             "replaces": "solver2d_tpu/ops/narrow_pallas.py:33",
-            "launches": launches, "max_abs_err": max_abs,
+            "launches": launches, "max_abs_err": k2_err,
             "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": k2_lane_bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "call_ms": k2_call,
@@ -731,18 +994,22 @@ def main():
             "bound_by_b": k1["TGS_SOFT"][0][5]["k2_bound_by"],
             "ms_a": k1["TGS_SOFT"][1][5]["k2_ms"], "bound_ms_a": k1["TGS_SOFT"][1][5]["k2_bound_ms"],
             "bound_by_a": k1["TGS_SOFT"][1][5]["k2_bound_by"],
+            "catalog": {f"{k[0]}/{k[1]}": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"), r))
+                        for k, r in k2_catalog.items()},
         },
     ] + [
         {
             "name": f"K1 fused soft solve ({label})", "route": "cuda",
             "source": "solver2d_tpu_torch/csrc/fused_solve.cu",
             "replaces": "solver2d_tpu/solvers/pallas_solver.py:53",
-            "launches": k1_launches[solver], "max_abs_err": max(r[0] for r in k1[solver]),
+            "launches": k1_launches[solver], "max_abs_err": max(r[0] for r in k1[solver] + [k1_catalog[solver]]),
             "ms": k1[solver][0][1], "plain_ms": k1[solver][0][2], "bound_ms": k1[solver][0][3],
             "bound_by": k1[solver][0][4], "library_ms": None,
             **{k: k1[solver][0][5][k] for k in ("call_ms", "phases", "us_per_phase", "registers", "spill_bytes",
                                                  "smem_bytes", "stage_bytes", "blocks_per_sm")},
             "ms_a": k1[solver][1][1], "bound_ms_a": k1[solver][1][3], "phases_a": k1[solver][1][5]["phases"],
+            "ms_ragdoll_stress": k1_catalog[solver][1], "plain_ms_ragdoll_stress": k1_catalog[solver][2],
+            "bound_ms_ragdoll_stress": k1_catalog[solver][3], "bound_by_ragdoll_stress": k1_catalog[solver][4],
         }
         for solver, label in zip(FUSED, ("TGS_Soft", "SoftStep", "PGS_Soft"))
     ]}), flush=True)

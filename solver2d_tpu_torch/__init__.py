@@ -11,12 +11,13 @@ kernel wrapper runs the kernel's plain PyTorch twin.
 from .config import BodyType, SimConfig, SolverType
 from .models.contact_scenes import pyramid_world
 from .models.joint_scenes import bridge
-from .parallel.batch import batched_step, replicate
+from .models import Scene, build, scene_names
+from .parallel.batch import batch_states, batched_step, replicate
 from .state import State, state_from_numpy, to_numpy
 from .step import step_batch
 from .world import World
 
 __all__ = [
-    "BodyType", "SimConfig", "SolverType", "State", "World", "batched_step", "bridge",
-    "pyramid_world", "replicate", "state_from_numpy", "step_batch", "to_numpy",
+    "BodyType", "Scene", "SimConfig", "SolverType", "State", "World", "batch_states", "batched_step", "bridge",
+    "build", "pyramid_world", "replicate", "scene_names", "state_from_numpy", "step_batch", "to_numpy",
 ]

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import MAX_POLYGON_VERTICES, ShapeType
+from ..config import MAX_POLYGON_VERTICES, PI, ShapeType
 from . import math2d as m
 
 
@@ -64,6 +64,41 @@ def square(h: float) -> ShapeGeom:
     return box(h, h)
 
 
+def offset_box(hx: float, hy: float, center, angle: float) -> ShapeGeom:
+    """A box rotated by `angle` about its center, moved to `center`
+    (reference: src/geometry.c:80-98)."""
+    c, s = np.cos(angle), np.sin(angle)
+    R = np.array([[c, -s], [s, c]])
+    pts = np.array([(-hx, -hy), (hx, -hy), (hx, hy), (-hx, hy)], np.float64)
+    return polygon(pts @ R.T + np.asarray(center, np.float64))
+
+
+def circle(point, radius: float) -> ShapeGeom:
+    """One vertex and a radius."""
+    p = np.asarray(point, np.float32).reshape(1, 2)
+    return ShapeGeom(_pad(p), _pad(np.array([[0.0, 1.0]])), 1, float(radius), ShapeType.CIRCLE)
+
+
+def capsule(p1, p2, radius: float, source_type=ShapeType.CAPSULE) -> ShapeGeom:
+    """Two vertices and a radius (reference: src/geometry.c:100-115)."""
+    p1 = np.asarray(p1, np.float64)
+    p2 = np.asarray(p2, np.float64)
+    axis = p2 - p1
+    n = np.linalg.norm(axis)
+    if n < 1e-12:
+        raise ValueError("degenerate capsule")
+    axis = axis / n
+    normal = np.array([axis[1], -axis[0]])
+    verts = _pad(np.stack([p1, p2]).astype(np.float32))
+    normals = _pad(np.stack([normal, -normal]).astype(np.float32))
+    return ShapeGeom(verts, normals, 2, float(radius), source_type)
+
+
+def segment(p1, p2) -> ShapeGeom:
+    """A capsule of radius 0 (reference: src/manifold.c:232-238)."""
+    return capsule(p1, p2, 0.0, source_type=ShapeType.SEGMENT)
+
+
 @dataclasses.dataclass
 class MassData:
     mass: float
@@ -72,16 +107,30 @@ class MassData:
 
 
 def compute_mass(geom: ShapeGeom, density: float) -> MassData:
-    """Mass properties of a rounded polygon (reference: src/geometry.c:154-286).
-    The port builds polygons only (count >= 3). The arithmetic is float32,
-    operation for operation as the scene compiler csrc/s2native.cpp
-    (`s2n_shape_mass`) computes it, so that a frozen world's masses and
-    inertias equal the JAX package's to the bit."""
+    """Mass properties of a shape about its local origin: a circle (count
+    1), a capsule or segment (count 2) or a rounded polygon (reference:
+    src/geometry.c:117-286). The arithmetic is float32, operation for
+    operation as the scene compiler csrc/s2native.cpp (`s2n_shape_mass`)
+    computes it, so that a frozen world's masses and inertias equal the JAX
+    package's to the bit."""
     f = np.float32
     count = geom.count
     radius = f(geom.radius)
     density = f(density)
     pts = geom.verts[:count].astype(f)
+    rr = radius * radius
+    if count == 1:
+        mass = density * f(PI) * rr
+        c = pts[0]
+        return MassData(mass, c.copy(), mass * (f(0.5) * rr + (c[0] * c[0] + c[1] * c[1])))
+    if count == 2:
+        dx, dy = pts[1][0] - pts[0][0], pts[1][1] - pts[0][1]
+        length = np.sqrt(dx * dx + dy * dy)
+        ll = length * length
+        mass = density * (f(PI) * radius + f(2) * length) * radius
+        center = np.array([f(0.5) * (pts[0][0] + pts[1][0]), f(0.5) * (pts[0][1] + pts[1][1])], f)
+        box_inertia = (f(4) * rr + ll) / f(12)
+        return MassData(mass, center, mass * (f(0.5) * (rr + ll) + box_inertia))
     if radius > 0:
         # push vertices out along the corner bisectors (geometry.c:203-225)
         normals = geom.normals[:count].astype(f)
@@ -119,6 +168,49 @@ def compute_mass(geom: ShapeGeom, density: float) -> MassData:
     inertia *= density
     inertia += mass * ((wx * wx + wy * wy) - (cx * cx + cy * cy))
     return MassData(mass, np.array([wx, wy], f), inertia)
+
+
+def compute_mass_f64(geom: ShapeGeom, density: float) -> MassData:
+    """`compute_mass` in float64, as the JAX `World` computes a body's mass
+    when a build-time call needs it before freezing (its
+    `apply_linear_impulse`): the same formulas, rounded once at the end."""
+    count, radius = geom.count, geom.radius
+    pts = geom.verts[:count].astype(np.float64)
+    rr = radius * radius
+    if count == 1:
+        mass = density * np.pi * rr
+        return MassData(mass, pts[0].copy(), mass * (0.5 * rr + pts[0] @ pts[0]))
+    if count == 2:
+        length = np.linalg.norm(pts[1] - pts[0])
+        ll = length * length
+        mass = density * (np.pi * radius + 2.0 * length) * radius
+        return MassData(mass, 0.5 * (pts[0] + pts[1]), mass * (0.5 * (rr + ll) + (4.0 * rr + ll) / 12.0))
+    if radius > 0.0:
+        normals = geom.normals[:count].astype(np.float64)
+        out = np.zeros_like(pts)
+        for i in range(count):
+            n1, n2 = normals[count - 1 if i == 0 else i - 1], normals[i]
+            mid = n1 + n2
+            mid = mid / max(np.linalg.norm(mid), 1e-12)
+            sin_half = mid[0] * n1[0] - mid[1] * -n1[1]
+            offset = radius / sin_half if sin_half > 1e-7 else radius
+            out[i] = pts[i] + offset * mid
+        pts = out
+    center, area, inertia = np.zeros(2), 0.0, 0.0
+    r, inv3 = pts[0], 1.0 / 3.0
+    for i in range(1, count - 1):
+        e1, e2 = pts[i] - r, pts[i + 1] - r
+        D = e1[0] * e2[1] - e1[1] * e2[0]
+        area += 0.5 * D
+        center += 0.5 * D * inv3 * (e1 + e2)
+        intx2 = e1[0] ** 2 + e2[0] * e1[0] + e2[0] ** 2
+        inty2 = e1[1] ** 2 + e2[1] * e1[1] + e2[1] ** 2
+        inertia += (0.25 * inv3 * D) * (intx2 + inty2)
+    mass = density * area
+    center /= area
+    world_center = r + center
+    inertia = density * inertia + mass * (world_center @ world_center - center @ center)
+    return MassData(mass, world_center, inertia)
 
 
 def compute_aabbs(verts, radius, origin, rot):

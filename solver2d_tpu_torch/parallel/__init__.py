@@ -1,3 +1,3 @@
-from .batch import batched_step, replicate
+from .batch import batch_states, batched_step, replicate
 
-__all__ = ["batched_step", "replicate"]
+__all__ = ["batch_states", "batched_step", "replicate"]

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import torch
+
 from ..config import SimConfig
 from ..state import State
 from ..step import step
@@ -10,6 +12,11 @@ from ..step import step
 def replicate(state: State, n: int) -> State:
     """Tile one world into an [n, ...] batch (fresh memory)."""
     return state.map(lambda x: x[None].expand((n,) + tuple(x.shape)).contiguous())
+
+
+def batch_states(states: list[State]) -> State:
+    """Stack same-capacity worlds into a [W, ...] batch."""
+    return states[0].map(lambda *xs: torch.stack(xs), *states[1:])
 
 
 def batched_step(config: SimConfig):

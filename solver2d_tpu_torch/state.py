@@ -25,13 +25,14 @@ _UINT32_FIELDS = frozenset({"filter_category", "filter_mask"})
 
 class _Tree:
     """Mixin: map a function over the tensor fields (recursing into nested
-    dataclasses)."""
+    dataclasses), or over the same fields of several trees together."""
 
-    def map(self, fn):
+    def map(self, fn, *others):
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            out[f.name] = v.map(fn) if isinstance(v, _Tree) else fn(v)
+            vs = [getattr(o, f.name) for o in others]
+            out[f.name] = v.map(fn, *vs) if isinstance(v, _Tree) else fn(v, *vs)
         return type(self)(**out)
 
     def to(self, device):

@@ -1,0 +1,138 @@
+"""Headless testbed CLI: the reference's samples app without a window.
+
+An own copy of the JAX package's `testbed.py` for the port (reference:
+samples/main.cpp, sample.cpp): runs one catalog scene under one or more
+solvers (one world per solver, main.cpp:705-711), steps them in
+lockstep with the scene's hooks on the per-world step (`batched_step`, K2
+then K1), and prints the per-solver stats overlay (sample.cpp:144-156).
+
+Usage:
+  python -m solver2d_tpu_torch.testbed --list
+  python -m solver2d_tpu_torch.testbed "Contact/Pyramid" --solvers TGS_SOFT,PGS_SOFT --steps 240
+  python -m solver2d_tpu_torch.testbed "Joints/Ragdoll Stress" --solvers all --steps 240
+
+Settings mirror samples/settings.h:16-24: 60 Hz, 4 primary iterations, 2
+secondary, warm starting on. The scene runs on the card; `run_scene(...,
+device="cpu")` runs it on the CPU through the kernels' plain twins.
+`ms/step` is the host clock around each frame's steps, closed by a device
+synchronisation, so it includes the first steps' kernel builds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .config import FUSED_SOLVERS, SolverType
+from .models import build, scene_names
+from .parallel.batch import batched_step, replicate
+from .utils.metrics import statistics
+
+
+def parse_solvers(spec: str) -> list[SolverType]:
+    """A comma list of solver names, or "all" (the per-world step's fused
+    solvers). A solver that is not ported raises."""
+    if spec == "all":
+        return sorted(FUSED_SOLVERS)
+    solvers = [SolverType[s.strip()] for s in spec.split(",")]
+    missing = [s.name for s in solvers if s not in FUSED_SOLVERS]
+    if missing:
+        ported = ", ".join(s.name for s in sorted(FUSED_SOLVERS))
+        raise ValueError(
+            f"solver(s) {', '.join(missing)} not ported: the port runs {ported} (the other seven solvers are ROADMAP "
+            "item 6)"
+        )
+    return solvers
+
+
+def run_scene(
+    category: str,
+    name: str,
+    solvers: list[SolverType],
+    steps: int = 240,
+    hertz: float = 60.0,
+    iterations: int = 4,
+    extra_iterations: int = 2,
+    warm_start: bool = True,
+    multi_steps: int = 1,
+    device="cuda",
+    verbose: bool = True,
+):
+    """Step the scene `steps` frames under each solver (a batch of one
+    world each). Returns {solver: dict(scene, state, cfg, step, ms)}."""
+    parse_solvers(",".join(s.name for s in solvers))
+    dt = 1.0 / hertz if hertz > 0 else 0.0
+    dev = torch.device(device)
+    runs = {}
+    for solver in solvers:
+        scene = build(category, name, solver)
+        state, cfg = scene.freeze(
+            device=dev, iterations=iterations, extra_iterations=extra_iterations, warm_start=warm_start,
+        )
+        runs[solver] = dict(scene=scene, state=replicate(state, 1), cfg=cfg, step=batched_step(cfg), ms=0.0)
+
+    for i in range(steps):
+        for r in runs.values():
+            state, scene = r["state"], r["scene"]
+            if scene.pre_step is not None:
+                state = scene.pre_step(state)
+            if scene.on_step is not None:
+                new = scene.on_step(state, i)
+                if new is not None:
+                    state = new
+            t0 = time.perf_counter()
+            # multi_steps world-steps per frame (reference: samples/sample.cpp:130-137)
+            for _ in range(multi_steps):
+                state = r["step"](state, dt)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            r["ms"] += 1e3 * (time.perf_counter() - t0)
+            r["state"] = state
+
+    if verbose:
+        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        print(f"=== {category}/{name} after {steps} steps (dt={dt:.5f}) on {where} ===")
+        print(f"{'solver':15s} {'ms/step':>8s} {'bodies':>7s} {'contacts':>8s} {'pen(max)':>9s} {'KE':>12s} "
+              f"{'overflow':>8s} {'cap-use':>8s}")
+        for solver, r in runs.items():
+            st = statistics(r["state"])
+            # capacity headroom: peak utilization across the fixed tables
+            # (the reference's proxy-count high-water analog, timer.h:8-17)
+            cap = max(st.utilization.values())
+            print(f"{solver.name:15s} {r['ms'] / steps:8.2f} {st.body_count:7d} {st.contact_count:8d}"
+                  f" {st.max_penetration:9.4f} {st.kinetic_energy:12.3f} {st.color_overflow:8d} {cap:7.0%}")
+    return runs
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("scene", nargs="?", help="Category/Name, e.g. 'Contact/Pyramid'")
+    p.add_argument("--list", action="store_true", help="list the scene catalog")
+    p.add_argument("--solvers", default="TGS_SOFT", help="comma list or 'all' (TGS_SOFT, SOFT_STEP, PGS_SOFT)")
+    p.add_argument("--steps", type=int, default=240)
+    p.add_argument("--hertz", type=float, default=60.0)
+    p.add_argument("--iters", type=int, default=4)
+    p.add_argument("--extra-iters", type=int, default=2)
+    p.add_argument("--no-warm-start", action="store_true")
+    p.add_argument("--multi-steps", type=int, default=1,
+                   help="world-steps per frame (reference: samples/sample.cpp:130-137)")
+    args = p.parse_args(argv)
+
+    if args.list or not args.scene:
+        for cat, name in scene_names():
+            print(f"{cat}/{name}")
+        return 0
+
+    category, name = args.scene.split("/", 1)
+    run_scene(
+        category, name, parse_solvers(args.solvers),
+        steps=args.steps, hertz=args.hertz, iterations=args.iters, extra_iterations=args.extra_iters,
+        warm_start=not args.no_warm_start, multi_steps=args.multi_steps,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

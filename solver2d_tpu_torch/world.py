@@ -1,10 +1,10 @@
 """Host-side scene construction: a numpy `World` that `freeze`s into a
 `State` of tensors and a `SimConfig`.
 
-An own copy of the JAX package's `world.py` API for what the port runs:
-bodies, polygon shapes, revolute and mouse joints (reference:
-src/joint.c:154-223), mass properties (src/body.c:152-218) and the
-scene-aware default configuration (grid cell, colors, capacities).
+An own copy of the JAX package's `world.py` API: bodies, circle, capsule,
+segment and polygon shapes, build-time impulses, revolute and mouse joints
+(reference: src/joint.c:154-223), mass properties (src/body.c:152-218) and
+the scene-aware default configuration (grid cell, colors, capacities).
 """
 
 from __future__ import annotations
@@ -132,10 +132,9 @@ class World:
         self.bodies.append(_Body(def_))
         return len(self.bodies) - 1
 
-    def create_polygon_shape(self, body: int, geom_or_points, def_: Optional[ShapeDef] = None, **kw) -> int:
-        geom = geom_or_points
-        if not isinstance(geom, geometry.ShapeGeom):
-            geom = geometry.polygon(geom_or_points)
+    def create_shape(self, body: int, geom: geometry.ShapeGeom, def_: Optional[ShapeDef] = None, **kw) -> int:
+        """Attach a shape to a body (reference: src/body.c:220-314). Mass
+        properties wait for `freeze`."""
         if def_ is None:
             def_ = ShapeDef(**kw)
         elif kw:
@@ -143,6 +142,40 @@ class World:
         self.shapes.append(_Shape(body, geom, def_))
         self.bodies[body].shapes.append(len(self.shapes) - 1)
         return len(self.shapes) - 1
+
+    def create_polygon_shape(self, body: int, geom_or_points, def_: Optional[ShapeDef] = None, **kw) -> int:
+        geom = geom_or_points
+        if not isinstance(geom, geometry.ShapeGeom):
+            geom = geometry.polygon(geom_or_points)
+        return self.create_shape(body, geom, def_, **kw)
+
+    def create_circle_shape(self, body: int, center, radius: float, def_: Optional[ShapeDef] = None, **kw) -> int:
+        return self.create_shape(body, geometry.circle(center, radius), def_, **kw)
+
+    def create_capsule_shape(self, body: int, p1, p2, radius: float, def_: Optional[ShapeDef] = None, **kw) -> int:
+        return self.create_shape(body, geometry.capsule(p1, p2, radius), def_, **kw)
+
+    def create_segment_shape(self, body: int, p1, p2, def_: Optional[ShapeDef] = None, **kw) -> int:
+        return self.create_shape(body, geometry.segment(p1, p2), def_, **kw)
+
+    def apply_linear_impulse(self, body: int, impulse, point):
+        """Build-time impulse at a world point (reference: src/body.c:316-384).
+        It needs the body's mass now: like the JAX `World`, it computes it
+        in float64 (`geometry.compute_mass_f64`), and `freeze` keeps it."""
+        b = self.bodies[body]
+        if b.mass == 0.0 and b.def_.type == BodyType.DYNAMIC:
+            self._compute_mass_f64(body)
+        if b.mass <= 0.0:
+            return
+        impulse = np.asarray(impulse, np.float64)
+        r = np.asarray(point, np.float64) - (
+            np.asarray(b.def_.position, np.float64) + _rotate(_rot_of(b.def_.angle), b.local_center)
+        )
+        b.linear_velocity = b.linear_velocity + impulse / b.mass
+        b.def_.angular_velocity += (r[0] * impulse[1] - r[1] * impulse[0]) / b.inertia
+
+    def body_position(self, body: int):
+        return np.asarray(self.bodies[body].def_.position, np.float64)
 
     def get_local_point(self, body: int, world_point):
         """World point -> body origin frame (s2Body_GetLocalPoint)."""
@@ -206,6 +239,28 @@ class World:
         b.local_center = local_center = np.array([cx, cy], np.float64)
         rot = _rot_of(b.def_.angle)
         delta_center = _rotate(rot, local_center - old_center_offset)
+        w = b.def_.angular_velocity
+        b.linear_velocity = b.linear_velocity + w * np.array([-delta_center[1], delta_center[0]])
+
+    def _compute_mass_f64(self, body_idx: int):
+        """`_compute_mass` in float64, the JAX `World`'s on-demand path."""
+        b = self.bodies[body_idx]
+        old_center_offset = b.local_center.copy()
+        mass, inertia, center = 0.0, 0.0, np.zeros(2)
+        for si in b.shapes:
+            s = self.shapes[si]
+            if s.def_.density == 0.0:
+                continue
+            md = geometry.compute_mass_f64(s.geom, s.def_.density)
+            mass += md.mass
+            center += md.mass * md.center
+            inertia += md.inertia
+        if mass > 0.0:
+            center /= mass
+        b.mass = mass
+        b.inertia = inertia - mass * (center @ center) if inertia > 0.0 else 0.0
+        b.local_center = center
+        delta_center = _rotate(_rot_of(b.def_.angle), center - old_center_offset)
         w = b.def_.angular_velocity
         b.linear_velocity = b.linear_velocity + w * np.array([-delta_center[1], delta_center[0]])
 
@@ -308,9 +363,12 @@ class World:
             assert config.solver in FUSED_SOLVERS, (
                 f"the per-world step's fused solve runs {sorted(s.name for s in FUSED_SOLVERS)}"
             )
-            assert config.max_bodies * K1_BODY_BYTES <= K1_SMEM_BYTES, (
-                "the fused solve keeps a world's bodies in shared memory: reduce max_bodies"
-            )
+            if config.max_bodies * K1_BODY_BYTES > K1_SMEM_BYTES:
+                raise ValueError(
+                    f"max_bodies={config.max_bodies}: the fused solve (K1) keeps a world's bodies in shared "
+                    f"memory, at most {K1_SMEM_BYTES // K1_BODY_BYTES} a world; larger worlds wait for the "
+                    "XLA per-world solvers (ROADMAP item 5)"
+                )
             config = config.replace(contact_bucket_cap=0)
         if config.contact_bucket_cap < 0:
             cap = -(-2 * config.max_contacts // config.max_colors)

@@ -306,3 +306,74 @@ def test_k1_skips_empty_colors(card, solver):
     assert phases == _k1_phases(x, static)
     full_scan = 4 + static["substeps"] * (1 + 4 + 2 * (static["n_colors"] + static["n_joint_colors"]) + 1)
     assert phases[0] < full_scan
+
+
+# ------------------------------------------------------------ the catalog
+
+
+def _catalog_batch(name, W, dev, steps, solver="TGS_SOFT"):
+    """W worlds of a catalog scene at its published size, velocities
+    jittered apart, after `steps` steps of the per-world step with the
+    scene's hooks; and its config."""
+    from solver2d_tpu_torch import SolverType, batched_step, replicate
+    from solver2d_tpu_torch.models import SCENES
+
+    scene = SCENES[name](SolverType[solver])
+    state, cfg = scene.freeze(device=dev)
+    batch = replicate(state, W)
+    g = torch.Generator().manual_seed(1)
+    dyn = (batch.bodies.type == 2)[..., None]
+    jitter = (0.05 * torch.randn(batch.bodies.v.shape, generator=g)).to(dev)
+    batch.bodies.v = torch.where(dyn, batch.bodies.v + jitter * torch.arange(W, device=dev)[:, None, None],
+                                 batch.bodies.v)
+    step = batched_step(cfg)
+    for _ in range(steps):
+        if scene.pre_step is not None:
+            batch = scene.pre_step(batch)
+        batch = step(batch, 1.0 / 60.0)
+    return batch, cfg
+
+
+# Ragdoll Stress once its humans reach the paddles: contacts, limited and
+# motored joints in one launch; Confined: circles against circles and capsules
+CATALOG = {"ragdoll_stress": (("Joints", "Ragdoll Stress"), 40), "confined": (("Contact", "Confined"), 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "SOFT_STEP", "PGS_SOFT"])
+@pytest.mark.parametrize("scene", list(CATALOG))
+def test_k1_matches_twin_on_the_catalog(card, scene, solver):
+    from solver2d_tpu_torch.solvers import fused_cuda
+    from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
+    from solver2d_tpu_torch.solvers.loops import fused_static
+    from solver2d_tpu_torch.step import prepare
+
+    name, steps = CATALOG[scene]
+    batch, cfg = _catalog_batch(name, 4, card, steps, solver)
+    x, static = prepare(batch, 1.0 / 60.0, cfg).x, fused_static(cfg)
+    assert bool((x.cint[..., 3] & 4 != 0).any())
+    if scene == "ragdoll_stress":
+        j = batch.joints
+        assert bool((j.alive & j.enable_limit).any()) and bool((j.alive & j.enable_motor).any())
+        assert bool((x.jint[..., 3] & 2 != 0).any())
+    got = fused_cuda.fused_solve(x, **static)
+    want = fused_solve_plain(x, **static)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", list(CATALOG))
+def test_k2_matches_twin_on_the_catalog(card, scene):
+    from solver2d_tpu_torch.step import world_narrow_inputs
+
+    name, steps = CATALOG[scene]
+    batch, cfg = _catalog_batch(name, 4, card, steps)
+    args = world_narrow_inputs(batch, batch.contacts)
+    want = collide_lanes_plain(*args, cfg.gjk_iters)
+    assert bool((want[1][:, 2] > 0).any())
+    kinds = set(args[0][:, 32].int().tolist())
+    assert {2, 1 if scene == "confined" else 4}.issubset(kinds)  # capsules with circles, or with boxes
+    _same(narrow_cuda.collide(*args, cfg.gjk_iters), want)

@@ -33,6 +33,18 @@ SCRIPT = textwrap.dedent(
     state, cfg = pyramid_world(SolverType.TGS_SOFT, 3)[0].freeze(device="cpu", lane_solve=False, iterations=1)
     out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
     assert int(out.diag.contact_count[0]) > 0
+    # the catalog, its hooks and helpers, and the headless testbed
+    import solver2d_tpu_torch.models.far_scenes, solver2d_tpu_torch.models.human  # noqa: E401,F401
+    from solver2d_tpu_torch import testbed
+    from solver2d_tpu_torch.ops.hull import compute_hull
+    from solver2d_tpu_torch.utils import metrics, runtime
+    assert len(solver2d_tpu_torch.scene_names()) == 26 and testbed.main(["--list"]) == 0
+    assert compute_hull([(0, 0), (1, 0), (0, 1)]) is not None
+    runs = testbed.run_scene("Contact", "Warm Start Energy", [SolverType.TGS_SOFT], steps=2, iterations=1,
+                             extra_iterations=0, device="cpu")
+    scene, out = runs[SolverType.TGS_SOFT]["scene"], runs[SolverType.TGS_SOFT]["state"]
+    out = runtime.destroy_body(scene.on_step(out, 120), 1)
+    assert metrics.statistics(out).body_count == 2
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "solver2d_tpu"))
     assert not [m for m in loaded if sys.modules[m] is not None], loaded
     print("isolated ok")

@@ -1,4 +1,4 @@
-"""How the JAX package's per-world step moves the two scenes of the port's
+"""How the JAX package's per-world step moves the scenes of the port's
 per-world path, and how far the port is from it.
 
 Steps the reference package (`solver2d_tpu`: `step.step` with the XLA
@@ -10,14 +10,18 @@ the configurations of `chip_smoke.py`:
 - pyramid: the base-20 pyramid (211 bodies; 896 contacts, 10 colors,
   GJK 10): the largest displacement of a box from its start;
 - bridge: the 160-plank Bridge (161 revolute joints, 8 colors): the largest
-  joint separation (`joint_error`).
+  joint separation (`joint_error`);
+- catalog scenes at their published size and configuration (phase 8 of
+  `chip_smoke.py`): "Contact/Vertical Stack" and "Contact/Overlap Recovery"
+  (the deepest contact penetration and the kinetic energy), "Joints/Ragdoll
+  Stress" (`joint_error`, and its largest value over the run).
 
 Both run the solver given (TGS_SOFT by default, SOFT_STEP or PGS_SOFT: the
 fused solvers of the per-world step). Prints both after every step, and the
 largest position difference between the two. The JAX figures, doubled, set
-chip_smoke's MAX_DRIFT_B and MAX_JOINT_ERROR_A of each solver.
+chip_smoke's MAX_DRIFT_B, MAX_JOINT_ERROR_A and CATALOG_BOUNDS.
 
-Usage: python tools/jax_world_bounds.py pyramid|bridge [steps] [solver]
+Usage: python tools/jax_world_bounds.py pyramid|bridge|"Category/Name" [steps] [solver]
 """
 
 import os
@@ -34,28 +38,38 @@ import torch  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 from solver2d_tpu.config import SolverType  # noqa: E402
+from solver2d_tpu.models import build  # noqa: E402
 from solver2d_tpu.models.contact_scenes import pyramid_world  # noqa: E402
 from solver2d_tpu.models.joint_scenes import bridge  # noqa: E402
 from solver2d_tpu.step import step  # noqa: E402
-from solver2d_tpu.utils.metrics import joint_error  # noqa: E402
+from solver2d_tpu.utils.metrics import joint_error, kinetic_energy  # noqa: E402
 import solver2d_tpu_torch as port  # noqa: E402
 from solver2d_tpu_torch.utils.metrics import joint_error as port_joint_error  # noqa: E402
+from solver2d_tpu_torch.utils.metrics import kinetic_energy as port_kinetic_energy  # noqa: E402
 
 
 def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT"):
     if scene == "pyramid":
         w, _ = pyramid_world(SolverType.TGS_SOFT, 20)
-        kw = dict(max_contacts=896, max_colors=10, gjk_iters=10)
-    else:
+        state, cfg = w.freeze(solver=SolverType[solver], narrowphase="lanes", max_contacts=896, max_colors=10,
+                              gjk_iters=10)
+    elif scene == "bridge":
         w = bridge(SolverType.TGS_SOFT).world
-        kw = dict(max_colors=8)
-    state, cfg = w.freeze(solver=SolverType[solver], narrowphase="lanes", **kw)
+        state, cfg = w.freeze(solver=SolverType[solver], narrowphase="lanes", max_colors=8)
+    else:
+        sc = build(*scene.split("/", 1), SolverType[solver])
+        assert sc.pre_step is None and sc.on_step is None, "a scene with hooks"
+        state, cfg = sc.freeze(narrowphase="lanes")
+        if not sc.world.joints:
+            # the JAX solver's joint phases over an empty table change nothing
+            cfg = cfg.replace(solve_joints=False)
     pcfg = port.SimConfig(**{k: getattr(cfg, k) for k in port.SimConfig.__dataclass_fields__ if hasattr(cfg, k)})
     pcfg = pcfg.replace(lane_solve=False)
     pstep = port.batched_step(pcfg)
     pbatch = port.replicate(port.state_from_numpy(jax.tree.map(np.asarray, state), device="cpu"), 1)
     p0 = np.asarray(state.bodies.position)
     dyn = np.asarray(state.bodies.type) == 2
+    worst = worst_port = 0.0
     for i in range(steps):
         with jax.disable_jit():
             state = step(state, jnp.float32(1.0 / 60.0), cfg)
@@ -66,13 +80,19 @@ def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT"):
             m = float(np.linalg.norm((pos - p0)[dyn], axis=-1).max())
             pm = float(np.linalg.norm((ppos - p0)[dyn], axis=-1).max())
             what = "largest box displacement"
-        else:
+        elif scene == "bridge" or cfg.solve_joints:
             m = float(joint_error(state))
             pm = float(port_joint_error(pbatch)[0])
-            what = "joint_error"
+            worst, worst_port = max(worst, m), max(worst_port, pm)
+            what = f"joint_error (largest so far JAX {worst:.6f}, port {worst_port:.6f})"
+        else:
+            m, pm = float(state.diag.max_penetration), float(pbatch.diag.max_penetration[0])
+            what = (f"kinetic energy JAX {float(kinetic_energy(state)):.6f}, port "
+                    f"{float(port_kinetic_energy(pbatch)[0]):.6f}; max penetration")
         print(f"{scene} {solver} step {i + 1}: {what} JAX {m:.6f}, port {pm:.6f}; largest position difference "
               f"{np.abs(pos - ppos).max():.3e}; color_overflow JAX {int(state.diag.color_overflow)}, "
-              f"port {int(pbatch.diag.color_overflow[0])}", flush=True)
+              f"port {int(pbatch.diag.color_overflow[0])}; pair_overflow JAX {bool(state.diag.pair_overflow)}, "
+              f"port {bool(pbatch.diag.pair_overflow[0])}", flush=True)
 
 
 if __name__ == "__main__":
