@@ -46,18 +46,35 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
 7. path (a): 32 Bridges (8 colors), WARMUP + STEPS steps under each fused
    solver: finite, no color overflow, joints hold (joint_error below
    MAX_JOINT_ERROR_A), K1 once a step;
-8. the catalog: every registered scene at its published size (Joint Grid
-   cut to the largest square grid under K1's body cap), CATALOG_WORLDS
-   worlds with jittered velocities, TGS_Soft with the scene's hooks;
-   Ragdoll Stress, Confined and Rush also under SoftStep and PGS_Soft. The
-   first CATALOG_CHECK steps must equal the plain twins' on the CPU
-   (positions within phase 5's tolerance, colors and diagnostics equal);
-   then each scene runs on to its length (CATALOG_RUN): finite, K1 and K2
-   once a step, no pair overflow in world 0 (the unjittered scene) outside
-   PAIR_OVERFLOW_SCENES, Warm Start Energy's step-120 event fired, and
-   CATALOG_BOUNDS met (Vertical Stack stands, Overlap Recovery separates,
-   Ragdoll Stress holds its joints).
-   Each scene's ms/step and world-steps/s after those first steps.
+8. the catalog: every registered scene at its published size,
+   CATALOG_WORLDS worlds with jittered velocities, TGS_Soft with the
+   scene's hooks, on the route `World.freeze` picks (K1, but the XLA
+   solvers for the 100 x 100 Joint Grid, above K1's body cap); Ragdoll
+   Stress, Confined and Rush also under SoftStep and PGS_Soft. The first
+   CATALOG_CHECK steps must equal the plain twins' on the CPU (positions
+   within phase 5's tolerance, colors and diagnostics equal; the Joint Grid
+   on its world 0); then each scene runs on to its length (CATALOG_RUN):
+   finite, K2 once a step, K1 once a step on the fused route and never on
+   the XLA route, no pair overflow in world 0 (the unjittered scene)
+   outside PAIR_OVERFLOW_SCENES, Warm Start Energy's step-120 event fired,
+   and CATALOG_BOUNDS met (Vertical Stack stands, Overlap Recovery
+   separates, Ragdoll Stress and the Joint Grid hold their joints). Every
+   scene also runs under each solver only the XLA route runs (XLA_ONLY)
+   for CATALOG_CHECK + STEPS steps: finite, K2 once a step, K1 never;
+   Pyramid, Ragdoll Stress and Confined (XLA_CHECK_SCENES) also held to
+   the CPU for their first CATALOG_CHECK steps (where the solver blows a
+   scene up, within the CPU's own spread under a 1-ulp change of the
+   initial velocities, if that exceeds the tolerance). Each run's ms/step,
+   world-steps/s and pair and color overflow;
+9. the XLA route (`use_fused_solver=False`) on paths (b) and (a), under
+   each of its eight solvers on the dense layout, and under XLA_BUCKETED
+   on the bucketed one (`contact_bucket_cap=-1`, `joint_bucket_cap=-1`):
+   the first 3 steps of XLA_CHECK_WORLDS jittered worlds on the card equal
+   the CPU's (phase 5's tolerance, colors and diagnostics equal); then
+   WARMUP + STEPS steps of the path's worlds: finite, no color overflow,
+   the pyramid stands and the bridge holds within XLA_BOUNDS (twice the
+   JAX package's XLA solver on the CPU), K2 once a step, K1 never.
+Each phase's seconds are printed.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is `{"ok": true, "device": {...}}`.
@@ -84,6 +101,13 @@ W_B, BASE_B = 64, 20
 W_A = 32
 # the fused solvers of the per-world step, each a script of K1
 FUSED = ("TGS_SOFT", "SOFT_STEP", "PGS_SOFT")
+# the solvers of the per-world step's XLA route, and those only it runs
+XLA = ("JACOBI", "PGS", "PGS_NGS", "PGS_NGS_BLOCK", "PGS_SOFT", "SOFT_STEP", "TGS_SOFT", "TGS_NGS")
+XLA_ONLY = ("PGS", "PGS_NGS", "PGS_NGS_BLOCK", "JACOBI", "TGS_NGS")
+# phase 9: the solvers also run on the bucketed layout, and the worlds held
+# to the CPU for the first 3 steps
+XLA_BUCKETED = ("TGS_SOFT", "PGS_NGS_BLOCK")
+XLA_CHECK_WORLDS = 4
 # Largest box displacement of path (b) after WARMUP + STEPS steps, per
 # solver: twice the JAX package's on the CPU at this configuration and step
 # count (tools/jax_world_bounds.py pyramid 23 SOLVER): 0.026405 (TGS_Soft),
@@ -94,6 +118,22 @@ MAX_DRIFT_B = {"TGS_SOFT": 0.053, "SOFT_STEP": 2 * 0.026405, "PGS_SOFT": 2 * 0.0
 # bridge 23 SOLVER): 0.004900 (TGS_Soft), 0.002153 (SoftStep), 0.007671
 # (PGS_Soft).
 MAX_JOINT_ERROR_A = {"TGS_SOFT": 0.0098, "SOFT_STEP": 2 * 0.002153, "PGS_SOFT": 2 * 0.007671}
+# Phase 9's bounds after WARMUP + STEPS steps on the XLA route, per path,
+# solver and layout: twice the JAX package's (its XLA solver) on the CPU
+# (tools/jax_world_bounds.py pyramid|bridge 23 SOLVER --xla [--bucketed]):
+# the largest box displacement of path (b), the joint separation of (a).
+# Jacobi's base-20 pyramid does not stand in the JAX package either (426.4
+# after 23 steps, its pair table overflowing): its bound only keeps it
+# finite and near the reference's.
+JAX_XLA = {
+    ("b", "dense"): {"TGS_SOFT": 0.026405, "SOFT_STEP": 0.026405, "PGS_SOFT": 0.051025, "PGS": 0.066842,
+                     "PGS_NGS": 0.043601, "PGS_NGS_BLOCK": 0.052260, "JACOBI": 426.438171, "TGS_NGS": 0.014633},
+    ("b", "bucketed"): {"TGS_SOFT": 0.026405, "PGS_NGS_BLOCK": 0.052260},
+    ("a", "dense"): {"TGS_SOFT": 0.004900, "SOFT_STEP": 0.002153, "PGS_SOFT": 0.007671, "PGS": 0.007452,
+                     "PGS_NGS": 0.010953, "PGS_NGS_BLOCK": 0.010953, "JACOBI": 0.007671, "TGS_NGS": 0.004349},
+    ("a", "bucketed"): {"TGS_SOFT": 0.004920, "PGS_NGS_BLOCK": 0.010994},
+}
+XLA_BOUNDS = {k: {solver: 2 * v for solver, v in d.items()} for k, d in JAX_XLA.items()}
 # Largest box displacement allowed after WARMUP + STEPS steps. The JAX
 # package on the CPU moves the boxes of a base-20 pyramid by at most 0.0264
 # after 23 steps at this configuration (tools/jax_pyramid_drift.py 20 23).
@@ -102,8 +142,8 @@ MAX_JOINT_ERROR_A = {"TGS_SOFT": 0.0098, "SOFT_STEP": 2 * 0.002153, "PGS_SOFT": 
 # bound is twice that; a collapsing pyramid moves boxes by a box size (1.0)
 # or more.
 MAX_DRIFT = 0.5
-# Phase 8, the catalog: every registered scene at its published size (Joint
-# Grid cut to K1's body cap), CATALOG_WORLDS worlds with velocities
+# Phase 8, the catalog: every registered scene at its published size,
+# CATALOG_WORLDS worlds with velocities
 # jittered by world index x JITTER, the first CATALOG_CHECK steps compared
 # with the plain twins on the CPU, then the card alone to CATALOG_RUN steps
 # (CATALOG_CHECK + STEPS unless listed)
@@ -116,6 +156,8 @@ CATALOG_RUN = {
 }
 # the scenes also run under the other fused solvers
 CATALOG_ALL_SOLVERS = (("Joints", "Ragdoll Stress"), ("Contact", "Confined"), ("Contact", "Rush"))
+# under the XLA_ONLY solvers, the scenes also held to the CPU
+XLA_CHECK_SCENES = (("Contact", "Pyramid"), ("Joints", "Ragdoll Stress"), ("Contact", "Confined"))
 # scenes whose pair table overflows at default capacities in the JAX package
 # too (TESTLOG_r05.txt:29-30): gated on equality with the CPU twins only.
 # The other scenes must not overflow in world 0, the unjittered scene (a
@@ -130,11 +172,14 @@ FAR_RTOL = 4 * 2.0**-23
 # (tools/jax_world_bounds.py "Category/Name" STEPS TGS_SOFT): Vertical
 # Stack after 240 steps, max penetration 0.009975 and kinetic energy
 # 0.002514; Overlap Recovery after 120 steps, max penetration 0.002330;
-# Ragdoll Stress, the largest joint_error over 60 steps, 0.625976
+# Ragdoll Stress, the largest joint_error over 60 steps, 0.625976; the
+# 100 x 100 Joint Grid (XLA route), the largest joint_error over 23 steps,
+# 0.244524
 CATALOG_BOUNDS = {
     (("Contact", "Vertical Stack"), "TGS_SOFT"): dict(max_penetration=2 * 0.009975, kinetic_energy=2 * 0.002514),
     (("Contact", "Overlap Recovery"), "TGS_SOFT"): dict(max_penetration=2 * 0.002330),
     (("Joints", "Ragdoll Stress"), "TGS_SOFT"): dict(joint_error=2 * 0.625976),
+    (("Joints", "Joint Grid"), "TGS_SOFT"): dict(joint_error=2 * 0.244524),
 }
 # phase 3's catalog inputs: K2 after K2_CATALOG_STEPS steps of these scenes
 # (Confined's circles reach its capsule walls at step 5); K1 in each script
@@ -158,19 +203,20 @@ def bench_config(max_contacts):
     return dict(max_contacts=max_contacts, max_colors=9, gjk_iters=10, contact_bucket_cap=896)
 
 
-def pyramid_b(dev, solver):
+def pyramid_b(dev, solver, **kw):
     """Path (b): the base-20 pyramid of the JAX package's K1 chip runs
-    (exp/step_variants.py:16-18,38,44-49)."""
+    (exp/step_variants.py:16-18,38,44-49); `kw` more freeze settings."""
     from solver2d_tpu_torch import SolverType, pyramid_world
 
     world, _ = pyramid_world(SolverType[solver], BASE_B)
-    return world.freeze(device=dev, lane_solve=False, max_contacts=896, max_colors=10, gjk_iters=10)
+    return world.freeze(device=dev, lane_solve=False, max_contacts=896, max_colors=10, gjk_iters=10, **kw)
 
 
-def bridge_a(dev, solver, mouse=None):
+def bridge_a(dev, solver, mouse=None, **kw):
     """Path (a): the catalog Bridge (exp/chip_joint_pallas.py:26-35), with a
     mouse joint dragging plank 80 when asked: held from the ground
-    (mouse="ground") or from plank 79, a dynamic body ("plank")."""
+    (mouse="ground") or from plank 79, a dynamic body ("plank"); `kw` more
+    freeze settings."""
     from solver2d_tpu_torch import SolverType, bridge
 
     world, planks = bridge(SolverType[solver])
@@ -178,7 +224,7 @@ def bridge_a(dev, solver, mouse=None):
         x, y = world.bodies[planks[80]].def_.position
         body_a = 0 if mouse == "ground" else planks[79]
         world.create_mouse_joint(body_a, planks[80], (x + 0.5, y + 2.0), 5.0, 0.7)
-    return world.freeze(device=dev, lane_solve=False, max_colors=8)
+    return world.freeze(device=dev, lane_solve=False, max_colors=8, **kw)
 
 
 def time_cuda(fn, reps):
@@ -543,46 +589,39 @@ def check_k1(name, state, cfg, W, dev, card, timed=True, steps=2, scene=None, k2
     return err, k_ms, p_ms, bound, "bytes" if bytes_ms >= ops_ms else "operations", extras
 
 
-def joint_grid_side():
-    """The side of the largest square Joint Grid whose world fits K1's body
-    cap (the published grid, 100 x 100, waits for ROADMAP item 5)."""
-    from solver2d_tpu_torch.world import K1_BODY_BYTES, K1_SMEM_BYTES
-
-    n = 1
-    while (((n + 1) ** 2 + 2 + 7) // 8) * 8 * K1_BODY_BYTES <= K1_SMEM_BYTES:
-        n += 1
-    return n
-
-
 def catalog_scene(key, solver):
-    """A registered scene at its published size, Joint Grid cut to
-    `joint_grid_side()` squared."""
+    """A registered scene at its published size."""
     from solver2d_tpu_torch import SolverType
     from solver2d_tpu_torch.models import SCENES
 
-    n = joint_grid_side()
-    args = dict(numk=n, numi=n) if key == ("Joints", "Joint Grid") else {}
-    return SCENES[key](SolverType[solver], **args)
+    return SCENES[key](SolverType[solver])
 
 
-def catalog_batch(scene, dev, worlds=CATALOG_WORLDS):
-    """(batch on dev, the same batch on the CPU, config): `worlds` copies of
-    the frozen scene, world i's dynamic bodies' velocities jittered by
-    i * JITTER * N(0, 1) from a seeded generator."""
+def jittered(batch, seed=0):
+    """The batch with world i's dynamic bodies' velocities jittered by
+    i * JITTER * N(0, 1) from a seeded generator (on the CPU)."""
     import torch
 
-    from solver2d_tpu_torch import replicate
-
-    state, cfg = scene.freeze(device="cpu")
-    batch = replicate(state, worlds)
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(seed)
     b = batch.bodies
+    worlds = b.v.shape[0]
     scale = JITTER * torch.arange(worlds, dtype=torch.float32)
     dv = torch.randn(b.v.shape, generator=g) * scale[:, None, None]
     dw = torch.randn(b.w.shape, generator=g) * scale[:, None]
     dyn = b.type == 2
     b.v = torch.where(dyn[..., None], b.v + dv, b.v)
     b.w = torch.where(dyn, b.w + dw, b.w)
+    return batch
+
+
+def catalog_batch(scene, dev, worlds=CATALOG_WORLDS):
+    """(batch on dev, the same batch on the CPU, config): `worlds` copies of
+    the frozen scene, world i's dynamic bodies' velocities jittered by
+    i * JITTER * N(0, 1) from a seeded generator."""
+    from solver2d_tpu_torch import replicate
+
+    state, cfg = scene.freeze(device="cpu")
+    batch = jittered(replicate(state, worlds))
     return batch.to(dev), batch, cfg
 
 
@@ -614,30 +653,50 @@ def card_vs_cpu(gpu, cpu, far):
     return float(diff.max()), close, colors, diag
 
 
-def run_catalog_scene(key, solver, dev, card, counters):
+def run_catalog_scene(key, solver, dev, card, counters, compare=True):
     """Phase 8 for one scene under one solver: CATALOG_WORLDS worlds, the
-    first CATALOG_CHECK steps on the card and through the twins on the CPU,
-    compared; then the card alone to the scene's run length, timed after
-    those steps; launches, finiteness and the scene's bounds. Returns a
-    dict of its figures."""
+    first CATALOG_CHECK steps on the card and, if `compare`, through the
+    twins on the CPU, compared (the Joint Grid's world 0 only); then the
+    card alone to the scene's run length (a solver only the XLA route runs:
+    CATALOG_CHECK + STEPS), timed after those steps; launches, finiteness
+    and the scene's bounds. Returns a dict of its figures."""
     import torch
 
     from solver2d_tpu_torch import batched_step
+    from solver2d_tpu_torch.solvers import graphs
     from solver2d_tpu_torch.utils.metrics import joint_error, kinetic_energy
 
     scene = catalog_scene(key, solver)
     gpu, cpu, cfg = catalog_batch(scene, dev)
+    if key == ("Joints", "Joint Grid"):
+        cpu = cpu.map(lambda x: x[:1])
+    fused = bool(cfg.use_fused_solver)
     step = batched_step(cfg)
-    n = CATALOG_RUN.get(key, CATALOG_CHECK + STEPS)
-    for i in range(CATALOG_CHECK):
-        cpu = frame(scene, step, cpu, i)
+    n = CATALOG_RUN.get(key, CATALOG_CHECK + STEPS) if solver in FUSED else CATALOG_CHECK + STEPS
+    cpu0 = cpu.map(lambda x: x.clone())
+    if compare:
+        for i in range(CATALOG_CHECK):
+            cpu = frame(scene, step, cpu, i)
     for c in counters:
         c.launches = 0
     worst_joint = torch.zeros(CATALOG_WORLDS, device=dev)
     for i in range(CATALOG_CHECK):
         gpu = frame(scene, step, gpu, i)
         worst_joint = torch.maximum(worst_joint, joint_error(gpu))
-    err, close, colors, diag = card_vs_cpu(gpu, cpu, "origin" in scene.meta)
+    err, close, colors, diag = (card_vs_cpu(gpu.map(lambda x: x[:cpu.bodies.type.shape[0]]), cpu, "origin" in scene.meta)
+                                if compare else (float("nan"), True, True, True))
+    spread = None
+    if compare and not close and solver in XLA_ONLY:
+        # a scene that the solver blows up (Jacobi on Ragdoll Stress) turns
+        # the round-off of its first step into position differences of
+        # order 1 by the third: hold the card to the CPU's own spread
+        # under a change of the initial velocities by one ulp
+        bumped = cpu0.map(lambda x: x.clone())
+        bumped.bodies.v = torch.nextafter(bumped.bodies.v, torch.full_like(bumped.bodies.v, float("inf")))
+        for i in range(CATALOG_CHECK):
+            bumped = frame(scene, step, bumped, i)
+        spread = float((bumped.bodies.position - cpu.bodies.position).abs().max())
+        close = err <= 1e-4 + spread
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(CATALOG_CHECK, n):
@@ -649,35 +708,102 @@ def run_catalog_scene(key, solver, dev, card, counters):
     d = gpu.diag
     b = gpu.bodies
     out = dict(
-        scene=f"{key[0]}/{key[1]}", solver=solver, bodies=int(b.alive[0].sum()), shapes=int(gpu.shapes.alive[0].sum()),
-        joints=int(gpu.joints.alive[0].sum()), steps=n, ms_per_step=ms, world_steps_per_s=CATALOG_WORLDS / ms * 1e3,
-        err=err, colors_equal=colors, diag_equal=diag, k1_launches=launches[0], k2_launches=launches[1],
-        contacts=int(d.contact_count[0]), color_overflow=int(d.color_overflow.max()),
-        pair_overflow=bool(d.pair_overflow.any()), max_penetration=float(d.max_penetration[0]),
+        scene=f"{key[0]}/{key[1]}", solver=solver, route="fused" if fused else "XLA", bodies=int(b.alive[0].sum()),
+        shapes=int(gpu.shapes.alive[0].sum()), joints=int(gpu.joints.alive[0].sum()), steps=n, ms_per_step=ms,
+        world_steps_per_s=CATALOG_WORLDS / ms * 1e3, err=err, colors_equal=colors, diag_equal=diag,
+        k1_launches=launches[0], k2_launches=launches[1], contacts=int(d.contact_count[0]),
+        color_overflow=int(d.color_overflow.max()), pair_overflow=bool(d.pair_overflow.any()),
+        pair_overflow_0=bool(d.pair_overflow[0]), max_penetration=float(d.max_penetration[0]),
         kinetic_energy=float(kinetic_energy(gpu)[0]), joint_error=float(worst_joint[0]),
         joint_error_all=float(worst_joint.max()),
     )
-    reduced = f", reduced to {scene.meta['numk']} x {scene.meta['numi']}" if key == ("Joints", "Joint Grid") else ""
-    print(f"[8] {out['scene']} {solver}{reduced}: {out['bodies']} bodies, {out['shapes']} shapes, {out['joints']} "
-          f"joints, {CATALOG_WORLDS} worlds; {CATALOG_CHECK} steps card vs CPU twins: position err {err:.3e}, colors "
-          f"equal {colors}, diagnostics equal {diag}; after {n} steps: contacts {out['contacts']}, color_overflow max "
-          f"{out['color_overflow']}, pair_overflow any {out['pair_overflow']}, world 0 max penetration "
-          f"{out['max_penetration']:.6f}, kinetic energy {out['kinetic_energy']:.6f}, largest joint_error world 0 "
-          f"{out['joint_error']:.6f}, any world {out['joint_error_all']:.6f}; K1 {launches[0]}, K2 {launches[1]} "
-          f"launches; {ms:.2f} ms/step, {out['world_steps_per_s']:.1f} world-steps/s on {card}", flush=True)
+    checked = (f"{CATALOG_CHECK} steps card vs CPU twins{' (world 0)' if cpu.bodies.type.shape[0] == 1 else ''}: "
+               f"position err {err:.3e}" + (f" (the CPU's spread under a 1-ulp change of the initial velocities "
+                                            f"{spread:.3e})" if spread is not None else "")
+               + f", colors equal {colors}, diagnostics equal {diag}; " if compare else "")
+    print(f"[8] {out['scene']} {solver} ({out['route']} route): {out['bodies']} bodies, {out['shapes']} shapes, "
+          f"{out['joints']} joints, {CATALOG_WORLDS} worlds; {checked}after {n} steps: contacts {out['contacts']}, "
+          f"world 0 max penetration {out['max_penetration']:.6f}, kinetic energy {out['kinetic_energy']:.6f}, "
+          f"largest joint_error world 0 {out['joint_error']:.6f}, any world {out['joint_error_all']:.6f}; K1 "
+          f"{launches[0]}, K2 {launches[1]} launches; {ms:.2f} ms/step, {out['world_steps_per_s']:.1f} world-steps/s, "
+          f"pair overflow world 0 {out['pair_overflow_0']} / any {out['pair_overflow']}, color overflow max "
+          f"{out['color_overflow']} on {card}", flush=True)
+    graphs.clear()
     if not finite(b):
         fail(f"{out['scene']} {solver}: non-finite body state")
     if not (close and colors and diag):
         fail(f"{out['scene']} {solver}: the card disagrees with the CPU twins")
-    if launches != [n, n]:
-        fail(f"{out['scene']} {solver}: K1 launched {launches[0]}, K2 {launches[1]} times in {n} steps")
-    if bool(d.pair_overflow[0]) and key not in PAIR_OVERFLOW_SCENES:
+    if launches != [n if fused else 0, n]:
+        fail(f"{out['scene']} {solver}: K1 launched {launches[0]}, K2 {launches[1]} times in {n} steps "
+             f"({out['route']} route)")
+    if solver in FUSED and bool(d.pair_overflow[0]) and key not in PAIR_OVERFLOW_SCENES:
         fail(f"{out['scene']} {solver}: pair table overflow in world 0")
     for metric, bound in CATALOG_BOUNDS.get((key, solver), {}).items():
         if not out[metric] < bound:
             fail(f"{out['scene']} {solver}: {metric} {out[metric]} >= its bound {bound}")
-    if key == ("Contact", "Warm Start Energy") and bool(b.alive[:, scene.meta["top"]].any()):
+    if key == ("Contact", "Warm Start Energy") and solver in FUSED and bool(b.alive[:, scene.meta["top"]].any()):
         fail("Warm Start Energy: the top circle outlived its step-120 event")
+    return out
+
+
+def run_xla_path(path, solver, layout, dev, card, counters):
+    """Phase 9 for one path, solver and layout: the first 3 steps of
+    XLA_CHECK_WORLDS jittered worlds on the card and on the CPU, compared;
+    then WARMUP + STEPS steps of the path's worlds on the card, gated.
+    Returns a dict of its figures."""
+    import torch
+
+    from solver2d_tpu_torch import batched_step, replicate
+    from solver2d_tpu_torch.solvers import graphs
+    from solver2d_tpu_torch.utils.metrics import joint_error
+
+    kw = dict(use_fused_solver=False)
+    if layout == "bucketed":
+        kw.update(contact_bucket_cap=-1, joint_bucket_cap=-1)
+    state, cfg = (pyramid_b if path == "b" else bridge_a)("cpu", solver, **kw)
+    W = W_B if path == "b" else W_A
+    step = batched_step(cfg)
+    cpu = jittered(replicate(state, XLA_CHECK_WORLDS))
+    gpu = cpu.to(dev)
+    for _ in range(3):
+        cpu, gpu = step(cpu, DT), step(gpu, DT)
+    err, close, colors, diag = card_vs_cpu(gpu, cpu, False)
+    del gpu
+    batch = replicate(state.to(dev), W)
+    init_pos = batch.bodies.position.clone()
+    label = (f"[9] XLA route {solver} {layout}, path ({path}): {W} worlds x "
+             + (f"base-{BASE_B} pyramid" if path == "b" else "Bridge") + f" (buckets {cfg.contact_bucket_cap} contacts, "
+             f"{cfg.joint_bucket_cap} joints a color)")
+    batch, ms, launches = run_path(label, lambda b: step(b, DT), batch, W, card, counters)
+    b, d = batch.bodies, batch.diag
+    if path == "b":
+        dyn = (b.type[0] == 2) & b.alive[0]
+        metric, value = "largest box displacement", float((b.position - init_pos)[:, dyn].norm(dim=-1).max())
+    else:
+        metric, value = "joint_error max", float(joint_error(batch).max())
+    bound = XLA_BOUNDS[(path, layout)][solver]
+    out = dict(path=path, solver=solver, layout=layout, ms_per_step=ms, world_steps_per_s=W / ms * 1e3, err=err,
+               value=value, bound=bound, k1_launches=launches[0], k2_launches=launches[1],
+               color_overflow=int(d.color_overflow.max()), pair_overflow=bool(d.pair_overflow.any()),
+               contacts=int(d.contact_count[0]))
+    print(f"[9] {solver} {layout} ({path}): 3 steps of {XLA_CHECK_WORLDS} worlds card vs CPU: position err "
+          f"{err:.3e}, colors equal {colors}, diagnostics equal {diag}; after {WARMUP + STEPS} steps: {metric} "
+          f"{value:.6f} (bound {bound:.6f}), contacts {out['contacts']}, color overflow max {out['color_overflow']}, "
+          f"pair overflow any {out['pair_overflow']}; K1 {launches[0]}, K2 {launches[1]} launches", flush=True)
+    graphs.clear()
+    if not (close and colors and diag):
+        fail(f"XLA route {solver} {layout} ({path}): the card disagrees with the CPU")
+    if not finite(b):
+        fail(f"XLA route {solver} {layout} ({path}): non-finite body state")
+    if out["color_overflow"] != 0:
+        fail(f"XLA route {solver} {layout} ({path}): color overflow")
+    if not value < bound:
+        fail(f"XLA route {solver} {layout} ({path}): {metric} {value} >= {bound}")
+    if launches != [0, WARMUP + STEPS]:
+        fail(f"XLA route {solver} {layout} ({path}): K1 launched {launches[0]}, K2 {launches[1]} times in "
+             f"{WARMUP + STEPS} steps")
+    del batch, init_pos
+    torch.cuda.empty_cache()
     return out
 
 
@@ -705,6 +831,18 @@ def run_path(label, step, batch, n_worlds, card, counters):
     return batch, ms, launches
 
 
+_PHASE = {}
+
+
+def phase(n: str):
+    """Print the seconds since the previous phase began (the first call
+    starts the clock), and start phase n's."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"[{_PHASE['name']}] phase took {now - _PHASE['t']:.1f} s", flush=True)
+    _PHASE.update(name=n, t=now)
+
+
 def finite(bodies):
     import torch
 
@@ -728,6 +866,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. the card
+    phase("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -738,6 +877,7 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
 
     # ---- 2. build
+    phase("2")
     from solver2d_tpu_torch import _nvcc
     from solver2d_tpu_torch.ops import narrow_cuda
     from solver2d_tpu_torch.solvers import fused_cuda
@@ -763,6 +903,7 @@ def main():
     from solver2d_tpu_torch.utils.metrics import joint_error
 
     # ---- 3. kernels against their twins at their paths' shapes
+    phase("3")
     t0 = time.perf_counter()
     world, ids = pyramid_world(SolverType.TGS_SOFT, BASE)
     max_contacts = ((4 * len(ids) + 127) // 128) * 128
@@ -837,6 +978,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4. the lane path
+    phase("4")
     batch = replicate(state0, W)
     init_pos = batch.bodies.position.clone()
     batch, ms_step, (launches,) = run_path(
@@ -863,6 +1005,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 5. card against CPU on small inputs of both paths
+    phase("5")
     w8, _ = pyramid_world(SolverType.TGS_SOFT, 8)
     kw = dict(max_colors=9, gjk_iters=10, contact_bucket_cap=-1)
     sc, cfg8 = w8.freeze(device="cpu", **kw)
@@ -911,6 +1054,7 @@ def main():
                 fail(f"the card's per-world step disagrees with the CPU's ({solver}, {label})")
 
     # ---- 6. path (b): 64 x base-20 pyramid, and 7. path (a): 32 x Bridge,
+    phase("6-7")
     # under each fused solver
     ms_b, ms_a, k1_launches = {}, {}, {}
     for solver in FUSED:
@@ -966,15 +1110,31 @@ def main():
         flush=True)
 
     # ---- 8. the catalog
+    phase("8")
     from solver2d_tpu_torch import scene_names
 
     catalog = []
     for key in scene_names():
-        for solver in FUSED if key in CATALOG_ALL_SOLVERS else ("TGS_SOFT",):
-            catalog.append(run_catalog_scene(key, solver, dev, card, [fused_cuda.fused_solve, narrow_cuda.collide]))
+        for solver in (FUSED if key in CATALOG_ALL_SOLVERS else ("TGS_SOFT",)) + XLA_ONLY:
+            compare = solver in FUSED or key in XLA_CHECK_SCENES
+            catalog.append(run_catalog_scene(key, solver, dev, card, [fused_cuda.fused_solve, narrow_cuda.collide],
+                                             compare))
             torch.cuda.empty_cache()
     print(f"[8] catalog: {len(catalog)} scene runs, every check passed; ms/step " + "; ".join(
         f"{r['scene']} {r['solver']} {r['ms_per_step']:.2f}" for r in catalog) + f" on {card}", flush=True)
+
+    # ---- 9. the XLA route on paths (b) and (a)
+    phase("9")
+    xla_runs = []
+    for path in ("b", "a"):
+        for solver in XLA:
+            for layout in ("dense", "bucketed") if solver in XLA_BUCKETED else ("dense",):
+                xla_runs.append(run_xla_path(path, solver, layout, dev, card,
+                                             [fused_cuda.fused_solve, narrow_cuda.collide]))
+    print("[9] XLA route, every check passed; ms/step " + "; ".join(
+        f"({r['path']}) {r['solver']} {r['layout']} {r['ms_per_step']:.2f}" for r in xla_runs) + f" on {card}",
+        flush=True)
+    phase("end")
 
     k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()])
     print(card, flush=True)

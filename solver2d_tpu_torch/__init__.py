@@ -1,6 +1,7 @@
 """solver2d_tpu_torch: batched 2D rigid-body steps in PyTorch, with the
 narrowphase (K2) and the fused soft solve (K1) as hand-written CUDA kernels
-for Hopper.
+for Hopper, and the JAX package's XLA solvers (eight of its ten) in plain
+PyTorch on the per-world step.
 
 The port of the JAX package `solver2d_tpu` (which stays as the reference).
 It imports neither JAX nor that package. Entry points create tensors on

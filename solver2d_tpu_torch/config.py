@@ -3,13 +3,16 @@
 An own copy of the constants and enums of the JAX package's `config.py`
 (reference: include/solver2d/constants.h:6-22). `SimConfig` keeps only the
 fields the port's steps read. Both run the grid broadphase and the
-lane-major narrowphase; `lane_solve` picks the step:
+lane-major narrowphase (K2, whatever `narrowphase` names); `lane_solve`
+picks the step:
 
 - True: the lane-batched step (`step.step_batch`): shared world-0 structure,
   bucketed contact solve, no joints;
 - False: the per-world step (`step.step`, `parallel.batched_step`): each
-  world's own pairs and colors, and the fused soft solve (kernel K1) of
-  TGS_Soft, SoftStep or PGS_Soft with soft revolute and mouse joints.
+  world's own pairs and colors, then one of two solve routes
+  (`use_fused_solver`): the fused soft solve (kernel K1) of TGS_Soft,
+  SoftStep or PGS_Soft, or the XLA solvers of the JAX package
+  (`solvers/loops.py:SOLVERS`, plain PyTorch), dense or color-bucketed.
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ PI = 3.14159265359
 LINEAR_SLOP = 0.005
 SPECULATIVE_DISTANCE = 4.0 * LINEAR_SLOP
 AABB_MARGIN = 0.1
+ANGULAR_SLOP = 2.0 / 180.0 * PI
 MAX_POLYGON_VERTICES = 8
+MAX_LINEAR_CORRECTION = 0.2
+MAX_ANGULAR_CORRECTION = 8.0 / 180.0 * PI
+BAUMGARTE = 0.2
 MAX_BAUMGARTE_VELOCITY = 4.0
 CONTACT_HERTZ = 30.0
 JOINT_HERTZ = 60.0
@@ -48,9 +55,26 @@ class SolverType(enum.IntEnum):
     XPBD = 9
 
 
+# Solvers that sub-step: h = dt / iterations (reference: src/world.c:186-199)
+SUBSTEPPING_SOLVERS = frozenset(
+    {SolverType.XPBD, SolverType.TGS_SOFT, SolverType.TGS_STICKY, SolverType.TGS_NGS, SolverType.SOFT_STEP}
+)
+# Solvers whose contact sweeps take the color-bucketed layout
+# (`contact_bucket_cap`); Jacobi and TGS_Sticky keep the dense contact
+# table (joints bucket under every solver)
+BUCKETABLE_SOLVERS = frozenset(
+    {SolverType.PGS, SolverType.PGS_NGS, SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT,
+     SolverType.TGS_NGS, SolverType.XPBD, SolverType.PGS_NGS_BLOCK}
+)
 LANE_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT})
 # Solvers of the per-world step's fused solve (the scripts of K1)
 FUSED_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT})
+# Solvers of the per-world step's XLA route (`solvers/loops.py:SOLVERS`);
+# TGS_Sticky and XPBD are ROADMAP item 6
+XLA_SOLVERS = frozenset(
+    {SolverType.JACOBI, SolverType.PGS, SolverType.PGS_NGS, SolverType.PGS_NGS_BLOCK, SolverType.PGS_SOFT,
+     SolverType.SOFT_STEP, SolverType.TGS_SOFT, SolverType.TGS_NGS}
+)
 
 
 class BodyType(enum.IntEnum):
@@ -75,9 +99,9 @@ class SimConfig:
     The defaults are the JAX package's; `World.freeze` sizes the capacities
     and the grid from the scene."""
 
-    solver: SolverType = SolverType.TGS_SOFT
-    iterations: int = 4          # substeps (TGS_SOFT, SOFT_STEP) or velocity iterations
-    extra_iterations: int = 2    # relax iterations
+    solver: SolverType = SolverType.PGS_NGS_BLOCK
+    iterations: int = 4          # substeps (SUBSTEPPING_SOLVERS) or velocity iterations
+    extra_iterations: int = 2    # relax or position iterations
     warm_start: bool = True
 
     max_bodies: int = 128
@@ -90,13 +114,50 @@ class SimConfig:
     max_big_shapes: int = 16     # shapes larger than a cell
 
     gjk_iters: int = 20          # fixed GJK trip count
+    # the JAX package's narrowphase names: "xla", "lanes" and "pallas"
+    # compute the same math (its ops/narrow_lanes.py mirrors ops/manifold.py
+    # operation for operation); the port runs K2 for each
+    narrowphase: str = "xla"
+
+    # the per-world step's solve route: True the fused solve (K1, the soft
+    # solvers, a world's bodies in shared memory), False the XLA solvers;
+    # None picks K1 where it can run (`use_fused`). `World.freeze` resolves it.
+    use_fused_solver: bool | None = None
 
     max_colors: int = 16         # colors of the contact graph (<= 30)
     joint_max_colors: int = 8    # colors of the joint graph (<= 30)
-    contact_bucket_cap: int = 0  # per-color bucket capacity of the lane solve
+    contact_bucket_cap: int = 0  # per-color contact bucket capacity (> 0: bucketed)
+    joint_bucket_cap: int = 0    # per-color joint bucket capacity (XLA route)
+    # statically skip every contact (joint) solve phase; skipping the
+    # contacts also skips the narrowphase
+    solve_contacts: bool = True
+    solve_joints: bool = True
+    incremental_coloring: bool = True  # False (per-step MIS coloring) is ROADMAP item 7
     color_rounds: int = 8        # first-fit rounds for new constraints per step
 
     lane_solve: bool = True      # the lane-batched step; False: the per-world step
 
+    def substepping(self) -> bool:
+        return self.solver in SUBSTEPPING_SOLVERS
+
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)
+
+
+# K1 (csrc/fused_solve.cu) keeps each world's body state and per-body
+# constants, 16 floats a body, in shared memory: at most 227 KB a block
+K1_SMEM_BYTES = 232448
+K1_BODY_BYTES = 16 * 4
+
+
+def k1_fits(cfg: SimConfig) -> bool:
+    """A world of cfg.max_bodies fits K1's shared memory."""
+    return cfg.max_bodies * K1_BODY_BYTES <= K1_SMEM_BYTES
+
+
+def use_fused(cfg: SimConfig) -> bool:
+    """The per-world step's route: `use_fused_solver` where it is set, else
+    K1 when the solver is one of its scripts and the world fits it."""
+    if cfg.use_fused_solver is not None:
+        return cfg.use_fused_solver
+    return cfg.solver in FUSED_SOLVERS and k1_fits(cfg)

@@ -55,10 +55,9 @@ def scene_names():
     return sorted(SCENES.keys())
 
 
-def build(category: str, name: str, solver: SolverType = SolverType.TGS_SOFT) -> Scene:
-    """Build a registered scene. The default solver is TGS_Soft, the first
-    of the per-world step's fused solvers (the JAX package's default,
-    PGS_NGS_BLOCK, is not ported)."""
+def build(category: str, name: str, solver: SolverType = SolverType.PGS_NGS_BLOCK) -> Scene:
+    """Build a registered scene. The default solver is the JAX package's
+    (and the reference's), PGS_NGS_BLOCK."""
     try:
         factory = SCENES[(category, name)]
     except KeyError:

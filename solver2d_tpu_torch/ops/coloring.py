@@ -2,8 +2,8 @@
 buckets of the lane solve.
 
 Port of the JAX package's `ops/coloring.py` (`assign_colors`,
-`build_body_map`, `build_color_buckets`); the first two also run per world
-over a batch. Colors fix the Gauss-Seidel order,
+`build_body_map`, `build_color_buckets`); each also runs per world over a
+batch. Colors fix the Gauss-Seidel order,
 so every integer output here equals the JAX function's. Scatters reduce
 with max or add over int32, whose result does not depend on the order of
 the updates.
@@ -142,22 +142,28 @@ def build_color_buckets(color, active, max_colors: int, cap: int):
     """Color-major bucket table: bucket[k*cap + r] = the r-th color-k
     constraint in index order, or -1. Constraints past a color's cap are
     dropped for the step and lose their color. Returns (bucket i32
-    [max_colors*cap], new_color i32 [N], dropped i32 [])."""
-    N = color.shape[0]
+    [max_colors*cap], new_color i32 [N], dropped i32 []); on a batch of
+    graphs ([W, N]) each world's own, [W, ...]."""
+    if color.dim() == 1:
+        bucket, new_color, dropped = build_color_buckets(color[None], active[None], max_colors, cap)
+        return bucket[0], new_color[0], dropped[0]
+    W, N = color.shape
     K = max_colors
     dev = color.device
-    idx = torch.arange(N, dtype=I32, device=dev)
+    idx = torch.arange(N, dtype=I32, device=dev).expand(W, N)
     key = torch.where(active & (color >= 0), torch.clamp(color, 0, K - 1), K).to(I32)
-    order = torch.argsort(key * N + idx).to(I32)  # keys are unique
-    skey = key[order]
-    starts = torch.searchsorted(skey, torch.arange(K, dtype=I32, device=dev), side="left").to(I32)
-    rank = idx - starts[torch.clamp(skey, 0, K - 1)]
+    order = torch.argsort(key * N + idx, dim=1).to(I32)  # keys are unique
+    skey = _gather(key, order)
+    starts = torch.searchsorted(
+        skey.contiguous(), torch.arange(K, dtype=I32, device=dev).expand(W, K).contiguous(), side="left"
+    ).to(I32)
+    rank = idx - _gather(starts, torch.clamp(skey, 0, K - 1))
     ok = (skey < K) & (rank < cap)
     cell = torch.where(ok, torch.clamp(skey, 0, K - 1) * cap + rank, K * cap)
-    table = _scatter_max(torch.full((K * cap + 1,), -1, dtype=I32, device=dev), cell, torch.where(ok, order, -1))
-    bucket = table[: K * cap]
+    table = _scatter_max(torch.full((W, K * cap + 1), -1, dtype=I32, device=dev), cell, torch.where(ok, order, -1))
+    bucket = table[:, : K * cap]
 
     dropped_sorted = (skey < K) & ~ok
-    drop_tbl = _scatter_max(torch.zeros((N,), dtype=I32, device=dev), order, dropped_sorted.to(I32))
+    drop_tbl = _scatter_max(torch.zeros((W, N), dtype=I32, device=dev), order, dropped_sorted.to(I32))
     new_color = torch.where(drop_tbl > 0, -1, color)
-    return bucket, new_color, dropped_sorted.sum().to(I32)
+    return bucket, new_color, dropped_sorted.sum(dim=1).to(I32)

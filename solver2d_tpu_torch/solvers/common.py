@@ -1,12 +1,19 @@
-"""Shared solver pieces: integration, packed body state, soft contact
-preparation, impulse store, body maps.
+"""Shared solver pieces: integration, packed body state, contact
+preparation, impulse store, body maps, and the colored passes of the
+per-world XLA solvers.
 
-Port of the JAX package's `solvers/common.py` for the soft solvers.
-Functions broadcast over leading dims: the lane solve calls them on
-[bodies, worlds] and [bucket positions, worlds] tensors, the per-world step
-on [worlds, bodies] and [worlds, contacts]. Scalars that depend on the step (h,
-inv_h, hertz) are 0-dim float32 tensors, formed as the JAX package forms
-them.
+Port of the JAX package's `solvers/common.py`. Functions broadcast over
+leading dims: the lane solve calls them on [bodies, worlds] and [bucket
+positions, worlds] tensors, the per-world step on [worlds, bodies] and
+[worlds, contacts]. Scalars that depend on the step (h, inv_h, hertz) are
+0-dim float32 tensors, formed as the JAX package forms them.
+
+The per-world passes (`gather_rows2`, `gather_apply`, `ngs_apply`, the
+bucket permutations) take [W, ...] tensors and the constraints' body
+indices as int32 tensors beside their constraint rows; the JAX package
+carries those indices inside its rows as floats (`_i2f`), a TPU
+workaround the port leaves behind. Warm-start and Jacobi sums follow the
+JAX package's scatter-add order on the CPU (`body_plan`), never atomics.
 """
 
 from __future__ import annotations
@@ -16,10 +23,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import CONTACT_ZETA, PI
+from ..config import BAUMGARTE, CONTACT_ZETA, LINEAR_SLOP, MAX_LINEAR_CORRECTION, PI
 from ..ops import math2d as m
 from ..ops.coloring import build_body_map
 from ..state import Bodies
+
+I32 = torch.int32
 
 
 def integrate_velocities(consts, v_in, w_in, gravity, h):
@@ -113,11 +122,20 @@ def _effective_masses(rA, rB, normal, mA, iA, mB, iB):
     return nm, tm
 
 
-def prepare_contacts(contacts, ra, rb, *, h, hertz, warm_start: bool):
-    """Soft contact preparation (reference: src/solve_common.c:188-274).
-    `contacts` has the fields of `Contacts` in any leading shape; ra, rb are
-    the endpoints' constant rows [inv_mass, inv_I, rot(2), local_center(2)].
-    Returns (cons, normal_impulse, tangent_impulse)."""
+def body_const_rows(bodies):
+    """The per-body constant rows the contact prepare gathers: [inv_mass,
+    inv_I, rot(2), local_center(2)]."""
+    return torch.cat(
+        [bodies.inv_mass[..., None], bodies.inv_inertia[..., None], bodies.rot, bodies.local_center], dim=-1
+    )
+
+
+def prepare_contacts(contacts, ra, rb, *, h, hertz, warm_start: bool, soft: bool = True):
+    """Soft contact preparation (reference: src/solve_common.c:188-274), or
+    the PGS one (`soft=False`, :93-168), which differ in the bias, mass and
+    impulse coefficients only. `contacts` has the fields of `Contacts` in
+    any leading shape; ra, rb are the endpoints' constant rows
+    (`body_const_rows`). Returns (cons, normal_impulse, tangent_impulse)."""
     mA, iA, qA, lcA = ra[..., 0], ra[..., 1], ra[..., 2:4], ra[..., 4:6]
     mB, iB, qB, lcB = rb[..., 0], rb[..., 1], rb[..., 2:4], rb[..., 4:6]
 
@@ -135,13 +153,18 @@ def prepare_contacts(contacts, ra, rb, *, h, hertz, warm_start: bool):
     adj = sep - ((rB - rA) * normal[..., None, :]).sum(-1)
     nm, tm = _effective_masses(rA, rB, normal, mA, iA, mB, iB)
 
-    # stiffer against statics (solve_common.c:219); per contact, stored per point
-    contact_hertz = torch.where((mA == 0.0) | (mB == 0.0), 2.0 * hertz, hertz)
-    omega = (2.0 * PI * contact_hertz)[..., None].expand(sep.shape)
-    c = h * omega * (2.0 * CONTACT_ZETA + h * omega)
-    bias_coef = omega / (2.0 * CONTACT_ZETA + h * omega)
-    imp_coef = 1.0 / (1.0 + c)
-    mass_coef = c * imp_coef
+    if soft:
+        # stiffer against statics (solve_common.c:219); per contact, stored per point
+        contact_hertz = torch.where((mA == 0.0) | (mB == 0.0), 2.0 * hertz, hertz)
+        omega = (2.0 * PI * contact_hertz)[..., None].expand(sep.shape)
+        c = h * omega * (2.0 * CONTACT_ZETA + h * omega)
+        bias_coef = omega / (2.0 * CONTACT_ZETA + h * omega)
+        imp_coef = 1.0 / (1.0 + c)
+        mass_coef = c * imp_coef
+    else:
+        bias_coef = torch.where(sep > 0.0, 1.0, 0.0)
+        mass_coef = torch.ones_like(sep)
+        imp_coef = torch.zeros_like(sep)
     # the warm impulses are kept unconditionally (see the JAX package's note
     # on the PGS prep guard, solve_common.c:133)
     keep = pmask & warm_start
@@ -195,3 +218,197 @@ def make_body_map(body_a, body_b, color, active, dyn_mask, num_bodies: int, n_co
     own_a = ~write_a | (got[..., :N] == idx)
     own_b = ~write_b | (got[..., N:] == idx)
     return BodyMap(slot=slot, winner=own_a & own_b)
+
+
+# ---------------------------------------------------- the per-world XLA route
+#
+# Body state [W, B, 8] (`pack_body_state`); constraints [W, N, ...] with
+# their body indices ia, ib [W, N] (int32). Within a color every dynamic
+# body is written by at most one constraint, so a pass gathers its
+# endpoints' rows, solves every constraint of the set, and reads each
+# body's new row back through the body map's slot (`gather_apply`).
+
+
+def _worlds(x):
+    return torch.arange(x.shape[0], device=x.device)[:, None]
+
+
+def integrate_velocities_packed(bodies, bs, gravity, h):
+    """integrate_velocities on packed rows; gravity [W, 2]."""
+    v, w, dp, rot = unpack_body_state(bs)
+    v, w = integrate_velocities(bodies, v, w, gravity[:, None, :], h)
+    return pack_body_state(v, w, dp, rot)
+
+
+def integrate_positions_packed(bodies, bs, h):
+    v, w, dp, rot = unpack_body_state(bs)
+    dp, rot = integrate_positions(bodies.alive, bodies.type, dp, rot, v, w, h)
+    return pack_body_state(v, w, dp, rot)
+
+
+def gather_rows2(bs, ia, ib):
+    """The body rows of both endpoints of every constraint: (rows_a,
+    rows_b), each [W, N, 8]."""
+    N = ia.shape[1]
+    rows = bs[_worlds(bs), torch.cat([ia, ib], dim=1)]
+    return rows[:, :N], rows[:, N:]
+
+
+def gather_apply(bs, slot_k, ia, out_a, out_b):
+    """Body b takes the new row of the constraint slot_k[w, b] (its
+    endpoint A's row if b is that constraint's body A, else its B's), or
+    keeps its row where slot_k is -1. out_a, out_b [W, N, 8]."""
+    B = bs.shape[1]
+    w = _worlds(bs)
+    ci = torch.clamp(slot_k, min=0)
+    is_a = ia[w, ci] == torch.arange(B, dtype=ia.dtype, device=ia.device)
+    sel = torch.where(is_a[..., None], out_a[w, ci], out_b[w, ci])
+    return torch.where((slot_k >= 0)[..., None], sel, bs)
+
+
+def entry_plan(body, keep, order, n_bodies: int):
+    """CSR of the kept entries of each body, per world: offsets [W, B+1]
+    into entries [W, E], which list entry indices by body and then by
+    `order` (non-negative, unique per world, < 2^40)."""
+    W, E = body.shape
+    key = torch.where(keep, body.long() * (1 << 40) + order, n_bodies * (1 << 40))
+    skey, ent = torch.sort(key, dim=1)
+    bounds = torch.arange(n_bodies + 1, device=body.device, dtype=torch.long) * (1 << 40)
+    off = torch.searchsorted(skey, bounds.expand(W, -1).contiguous(), side="left").to(I32)
+    return off.contiguous(), ent.to(I32).contiguous()
+
+
+def dense_plan(off, ent, depth=None):
+    """The plan as a table [W, B, D] of entries and its mask [W, B, D];
+    D is `depth` if given (at least the most entries of a body), else
+    that most (a host sync)."""
+    cnt = off[:, 1:] - off[:, :-1]
+    D = depth if depth is not None else int(cnt.max()) if cnt.numel() else 0
+    d = torch.arange(D, device=off.device)
+    pos = (off[:, :-1, None] + d).long()
+    has = d < cnt[..., None]
+    rows = torch.gather(ent, 1, torch.clamp(pos, max=ent.shape[1] - 1).flatten(1)).reshape(pos.shape)
+    return torch.where(has, rows, 0).long(), has
+
+
+def apply_plan(bs, delta, table, has):
+    """bs[..., 0:3] += each of a body's planned deltas, one after another."""
+    W = bs.shape[0]
+    worlds = torch.arange(W, device=bs.device)[:, None]
+    vw = bs[..., 0:3]
+    for d in range(table.shape[2]):
+        vw = torch.where(has[..., d, None], vw + delta[worlds, table[..., d]], vw)
+    return torch.cat([vw, bs[..., 3:]], dim=-1)
+
+
+def body_plan(ia, ib, keep_a, keep_b, n_bodies: int, depth=None):
+    """The ordered scatter-add plan of per-constraint endpoint deltas into
+    bodies: for each body its kept entries of cat([ia, ib]) in that order,
+    the order in which the JAX package's scatter-add sums them on the CPU.
+    Entries left out add exact zeros there (constraints without live points,
+    bodies that are not dynamic). Returns (table, has) [W, B, D]; build it
+    once a step; without `depth` (see `dense_plan`) it syncs the host."""
+    W, N = ia.shape
+    pos = torch.arange(2 * N, device=ia.device).expand(W, -1)
+    off, ent = entry_plan(torch.cat([ia, ib], dim=1), torch.cat([keep_a, keep_b], dim=1), pos, n_bodies)
+    return dense_plan(off, ent, depth)
+
+
+def scatter_vw(bs, delta_a, delta_b, plan):
+    """Add the endpoint deltas [W, N, 3] (of v, w) to the bodies' rows in
+    the plan's order."""
+    return apply_plan(bs, torch.cat([delta_a, delta_b], dim=1), *plan)
+
+
+def warm_start_packed(bs, cons: ContactCons, ia, ib, n_imp, t_imp, plan, fixed_anchors: bool = False):
+    """Apply the contacts' accumulated impulses to their bodies (reference:
+    src/solve_common.c:276-326; at the prepare-time anchors,
+    solve_soft_step.c:16-63), summed in the plan's order."""
+    if fixed_anchors:
+        rA, rB = cons.r_a0, cons.r_b0
+    else:
+        rot = bs[..., 5:7]
+        w = _worlds(bs)
+        rA = m.rotate(rot[w, ia][..., None, :], cons.local_anchor_a)
+        rB = m.rotate(rot[w, ib][..., None, :], cons.local_anchor_b)
+    tangent = m.right_perp(cons.normal)
+    P = n_imp[..., None] * cons.normal[..., None, :] + t_imp[..., None] * tangent[..., None, :]
+    P = torch.where(cons.pmask[..., None], P, 0.0)
+    P_tot = P.sum(dim=-2)
+    torque_a = m.cross(rA, P).sum(dim=-1)
+    torque_b = m.cross(rB, P).sum(dim=-1)
+    dA = torch.cat([-cons.inv_mass_a[..., None] * P_tot, (-cons.inv_i_a * torque_a)[..., None]], dim=-1)
+    dB = torch.cat([cons.inv_mass_b[..., None] * P_tot, (cons.inv_i_b * torque_b)[..., None]], dim=-1)
+    return scatter_vw(bs, dA, dB, plan)
+
+
+def ngs_apply(bs, cons: ContactCons, ia, ib, slot_k):
+    """Nonlinear Gauss-Seidel position correction of one constraint set
+    (reference: src/solve_common.c:328-394), applied through a slot table."""
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    rowsA, rowsB = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rowsA)
+    vB, wB, dcB, qB = unpack_body_state(rowsB)
+    normal = cons.normal
+    for j in range(2):
+        rA = m.rotate(qA, cons.local_anchor_a[..., j, :])
+        rB = m.rotate(qB, cons.local_anchor_b[..., j, :])
+        d = (dcB - dcA) + (rB - rA)
+        sep = (d * normal).sum(-1) + cons.adjusted_separation[..., j]
+        C = torch.clamp(BAUMGARTE * (sep + LINEAR_SLOP), min=-MAX_LINEAR_CORRECTION, max=0.0)
+        rnA = m.cross(rA, normal)
+        rnB = m.cross(rB, normal)
+        K = mA + mB + iA * rnA**2 + iB * rnB**2
+        impulse = torch.where(K > 0.0, -C / torch.where(K > 0.0, K, 1.0), 0.0)
+        # NGS skips speculative points (solve_common.c:355-359)
+        ok = cons.pmask[..., j] & (cons.separation[..., j] <= 0.0)
+        impulse = torch.where(ok, impulse, 0.0)
+        P = impulse[..., None] * normal
+        dcA = dcA - mA[..., None] * P
+        qA = m.integrate_rot(qA, -iA * m.cross(rA, P))
+        dcB = dcB + mB[..., None] * P
+        qB = m.integrate_rot(qB, iB * m.cross(rB, P))
+    return gather_apply(bs, slot_k, ia, pack_body_state(vA, wA, dcA, qA), pack_body_state(vB, wB, dcB, qB))
+
+
+# ------------------------------------------------------------ bucketed solve
+#
+# The dense colored pass solves every constraint once per color and keeps
+# color k's; the bucketed layout (ops/coloring.py:build_color_buckets)
+# permutes the prepared constraints into color-major buckets once a step,
+# so that color k's pass takes its own static slice of `cap` rows.
+
+
+def permute_rows(arrays, bucket):
+    """Each [W, N, ...] array in bucket order [W, T, ...] (bucket [W, T],
+    -1 pads take row 0). Returns (arrays, valid [W, T])."""
+    valid = bucket >= 0
+    bi = torch.clamp(bucket, min=0)
+    w = _worlds(bucket)
+    return tuple(x[w, bi] for x in arrays), valid
+
+
+def bucket_contacts(cons: ContactCons, ia, ib, n_imp, t_imp, bucket):
+    """Prepared contacts, their bodies and impulses in bucket order; pad
+    rows are inactive."""
+    outs, valid = permute_rows(tuple(cons) + (ia, ib, n_imp, t_imp), bucket)
+    cons_b = ContactCons(*outs[:-4])
+    cons_b = cons_b._replace(active=cons_b.active & valid, pmask=cons_b.pmask & valid[..., None])
+    return (cons_b,) + outs[-4:]
+
+
+def unbucket_impulses(contacts, cons_b: ContactCons, bucket, n_b, t_b):
+    """Store bucketed impulses in their contacts' slots: the live points of
+    each bucketed contact (the bucketed store_impulses)."""
+    W, C = contacts.normal_impulse.shape[:2]
+    bi = torch.where(bucket >= 0, bucket, C).long()
+    stacked = []
+    for src, tgt in ((n_b, contacts.normal_impulse), (t_b, contacts.tangent_impulse)):
+        cols = []
+        for j in range(2):
+            idx = torch.where(cons_b.pmask[..., j], bi, C)
+            padded = torch.cat([tgt[..., j], torch.zeros_like(tgt[:, :1, j])], dim=1)
+            cols.append(padded.scatter(1, idx, src[..., j])[:, :C])
+        stacked.append(torch.stack(cols, dim=-1))
+    return dataclasses.replace(contacts, normal_impulse=stacked[0], tangent_impulse=stacked[1])

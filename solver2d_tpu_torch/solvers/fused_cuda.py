@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from ..world import K1_BODY_BYTES, K1_SMEM_BYTES
+from ..config import K1_BODY_BYTES, K1_SMEM_BYTES
 from .fused_solve import N_CONS_FIELDS, N_JOINT_FIELDS, FusedInputs, fused_solve_plain
 from .scripts import SCRIPTS, Script
 

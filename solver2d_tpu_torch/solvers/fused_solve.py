@@ -29,7 +29,7 @@ products, selects instead of masked blends `x + m * (y - x)`, and warm-start
 sums in a fixed order: each body adds its contacts' deltas in the order of
 the JAX package's scatter-add over [body_a; body_b] and its joints' deltas
 in color order, as the JAX package's colored joint warm start does
-(`_plan`).
+(`common.entry_plan`).
 
 A mouse joint never writes its body A (the prepare zeroes A's masses), but
 its pivot velocity reads A's velocity as the JAX package's
@@ -48,7 +48,7 @@ import torch
 from ..ops import math2d as m
 from . import contact_kernels as ck
 from . import joints as jk
-from .common import ContactCons, pack_body_state, unpack_body_state
+from .common import ContactCons, apply_plan, dense_plan, entry_plan, pack_body_state, unpack_body_state
 from .scripts import Script
 
 I32 = torch.int32
@@ -136,18 +136,6 @@ class FusedInputs(NamedTuple):
     scal: torch.Tensor        # f32 [2]: h, inv_h
 
 
-def _plan(body, keep, order, n_bodies: int):
-    """CSR of the kept entries of each body, per world: offsets [W, B+1]
-    into entries [W, E], which list entry indices by body and then by
-    `order` (non-negative, unique per world, < 2^40)."""
-    W, E = body.shape
-    key = torch.where(keep, body.long() * (1 << 40) + order, n_bodies * (1 << 40))
-    skey, ent = torch.sort(key, dim=1)
-    bounds = torch.arange(n_bodies + 1, device=body.device, dtype=torch.long) * (1 << 40)
-    off = torch.searchsorted(skey, bounds.expand(W, -1).contiguous(), side="left").to(I32)
-    return off.contiguous(), ent.to(I32).contiguous()
-
-
 def fused_inputs(bodies, gravity, ia, ib, cons: ContactCons, n_imp, t_imp, ccolor, cmap,
                  ja, jb, jcons: jk.JointCons, jimp: jk.JointImp, jcolor, jmap, h, inv_h) -> FusedInputs:
     """Derive and pack the fused solve's inputs for a batch of worlds
@@ -186,13 +174,13 @@ def fused_inputs(bodies, gravity, ia, ib, cons: ContactCons, n_imp, t_imp, ccolo
     # contacts warm bodies in the order of [body_a; body_b]; joints (the
     # active, colored winners) in color order
     pos_c = torch.arange(2 * C, device=dev).expand(W, -1)
-    c_off, c_ent = _plan(
+    c_off, c_ent = entry_plan(
         torch.cat([ia, ib], dim=1), torch.cat([cons.active & wa, cons.active & wb], dim=1), pos_c, B
     )
     jact = jcons.active & jmap.winner & (jcolor >= 0)
     pos_j = torch.arange(2 * J, device=dev).expand(W, -1)
     jc2 = torch.cat([jcolor, jcolor], dim=1).long().clamp(min=0)
-    j_off, j_ent = _plan(
+    j_off, j_ent = entry_plan(
         torch.cat([ja, jb], dim=1), torch.cat([jact & jwa, jact & jwb], dim=1), jc2 * (2 * J) + pos_j, B
     )
     return FusedInputs(
@@ -204,27 +192,6 @@ def fused_inputs(bodies, gravity, ia, ib, cons: ContactCons, n_imp, t_imp, ccolo
         c_off=c_off, c_ent=c_ent, j_off=j_off, j_ent=j_ent,
         scal=torch.stack([h, inv_h]).to(torch.float32).contiguous(),
     )
-
-
-def _dense_plan(off, ent):
-    """The plan as a table [W, B, D] of entries and its mask [W, B, D]."""
-    cnt = off[:, 1:] - off[:, :-1]
-    D = int(cnt.max()) if cnt.numel() else 0
-    d = torch.arange(D, device=off.device)
-    pos = (off[:, :-1, None] + d).long()
-    has = d < cnt[..., None]
-    rows = torch.gather(ent, 1, torch.clamp(pos, max=ent.shape[1] - 1).flatten(1)).reshape(pos.shape)
-    return torch.where(has, rows, 0).long(), has
-
-
-def _apply_plan(bs, delta, table, has):
-    """bs[..., 0:3] += each of a body's planned deltas, one after another."""
-    W = bs.shape[0]
-    worlds = torch.arange(W, device=bs.device)[:, None]
-    vw = bs[..., 0:3]
-    for d in range(table.shape[2]):
-        vw = torch.where(has[..., d, None], vw + delta[worlds, table[..., d]], vw)
-    return torch.cat([vw, bs[..., 3:]], dim=-1)
 
 
 def _write_rows(bs, idx, upd, v, w):
@@ -261,8 +228,8 @@ def fused_solve_plain(x: FusedInputs, *, script: Script, substeps: int, relax: i
     jcons = unpack_joints(x.jfields, jflags)
     jwa, jwb = (jflags & J_WRITE_A) != 0, (jflags & J_WRITE_B) != 0
     jwin = (jflags & J_WINNER) != 0
-    c_table = _dense_plan(x.c_off, x.c_ent)
-    j_table = _dense_plan(x.j_off, x.j_ent)
+    c_table = dense_plan(x.c_off, x.c_ent)
+    j_table = dense_plan(x.j_off, x.j_ent)
 
     def rows(bs, idx):
         return unpack_body_state(bs[worlds, idx])
@@ -290,7 +257,7 @@ def fused_solve_plain(x: FusedInputs, *, script: Script, substeps: int, relax: i
         axial = torch.where(jcons.is_mouse, jimp[..., 2], jimp[..., 2] + jimp[..., 3] - jimp[..., 4])
         dA = torch.cat([-jcons.inv_mass_a[..., None] * P, (-jcons.inv_i_a * (m.cross(rA, P) + axial))[..., None]], -1)
         dB = torch.cat([jcons.inv_mass_b[..., None] * P, (jcons.inv_i_b * (m.cross(rB, P) + axial))[..., None]], -1)
-        return _apply_plan(bs, torch.cat([dA, dB], dim=1), *j_table)
+        return apply_plan(bs, torch.cat([dA, dB], dim=1), *j_table)
 
     def contact_warm(bs, n_imp, t_imp):
         if script.fixed_warm:
@@ -308,7 +275,7 @@ def fused_solve_plain(x: FusedInputs, *, script: Script, substeps: int, relax: i
         P_tot = P[..., 0, :] + P[..., 1, :]
         dA = torch.cat([-cons.inv_mass_a[..., None] * P_tot, (-cons.inv_i_a * (tq_a[..., 0] + tq_a[..., 1]))[..., None]], -1)
         dB = torch.cat([cons.inv_mass_b[..., None] * P_tot, (cons.inv_i_b * (tq_b[..., 0] + tq_b[..., 1]))[..., None]], -1)
-        return _apply_plan(bs, torch.cat([dA, dB], dim=1), *c_table)
+        return apply_plan(bs, torch.cat([dA, dB], dim=1), *c_table)
 
     def joint_colors(bs, jimp, use_bias, solve_mouse):
         for k in range(n_joint_colors):

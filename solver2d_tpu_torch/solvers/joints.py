@@ -1,12 +1,15 @@
-"""Soft revolute and mouse joints on tensors.
+"""Revolute and mouse joints on tensors.
 
-Port of the JAX package's `solvers/joints.py` for the soft solvers:
-preparation (reference: revolute_joint.c:421-506, mouse_joint.c:31-83), the
-motor and angle limits, the mouse joint's angular damping and the soft
-velocity solve (revolute_joint.c:508-657, mouse_joint.c:109-159), and the
-impulse store. Functions broadcast over leading dims; `prepare_joints`
-takes a batch of worlds ([W, B] bodies, [W, J] joints). The kernel K1
-(csrc/fused_solve.cu) repeats `solve_joint_core` operation for operation.
+Port of the JAX package's `solvers/joints.py`: preparation (reference:
+revolute_joint.c:30-105 rigid, :421-506 soft, mouse_joint.c:31-83), the
+motor and angle limits, the mouse joint's angular damping and the velocity
+solve in its rigid (revolute_joint.c:152-303), soft (:508-657) and
+Baumgarte (:660-790) modes (mouse_joint.c:109-159), the warm start, the NGS
+position solve (:305-419) and the impulse store. Functions broadcast over
+leading dims; `prepare_joints` takes a batch of worlds ([W, B] bodies,
+[W, J] joints), the passes the per-world layout of `common.py`. The kernel
+K1 (csrc/fused_solve.cu) repeats the soft `solve_joint_core` operation for
+operation.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import PI
+from ..config import ANGULAR_SLOP, BAUMGARTE, MAX_ANGULAR_CORRECTION, PI
 from ..ops import math2d as m
+from .common import gather_apply, gather_rows2, pack_body_state, permute_rows, unpack_body_state
 
 
 class JointCons(NamedTuple):
@@ -82,10 +86,11 @@ def _inv_sym(k11, k12, k22):
     return inv_det * k22, -inv_det * k12, inv_det * k11
 
 
-def prepare_joints(bodies, joints, *, h, hertz, warm_start: bool):
-    """Soft revolute preparation and mouse preparation for a batch of worlds
-    (bodies [W, B], joints [W, J]). h and hertz are 0-dim float32 tensors.
-    Returns (cons, imp)."""
+def prepare_joints(bodies, joints, *, h, hertz, warm_start: bool, soft: bool = True):
+    """Revolute preparation, soft or rigid (`soft=False`: no revolute
+    stiffness), and mouse preparation for a batch of worlds (bodies [W, B],
+    joints [W, J]). h and hertz are 0-dim float32 tensors. Returns (cons,
+    imp)."""
     W = joints.body_a.shape[0]
     worlds = torch.arange(W, device=joints.body_a.device)[:, None]
     ia, ib = joints.body_a, joints.body_b
@@ -116,7 +121,7 @@ def prepare_joints(bodies, joints, *, h, hertz, warm_start: bool):
     # the mouse joint has its own stiffness (mouse_joint.c:50-58); the soft
     # revolute joint the solver's joint hertz with zeta 10 (:470-477)
     zeta = torch.where(is_mouse, joints.damping_ratio, 10.0)
-    hz = torch.where(is_mouse, joints.hertz, hertz)
+    hz = torch.where(is_mouse, joints.hertz, hertz if soft else 0.0)
     omega = 2.0 * PI * hz
     c = h * omega * (2.0 * zeta + h * omega)
     denom = 2.0 * zeta + h * omega
@@ -147,9 +152,10 @@ def prepare_joints(bodies, joints, *, h, hertz, warm_start: bool):
     return cons, imp
 
 
-def _motor_limits(cons: JointCons, imp: JointImp, wA, wB, qA, qB, h, inv_h, use_bias: bool):
-    """Motor and angle limits of the soft revolute joint
-    (revolute_joint.c:527-603). Returns (wA, wB, imp)."""
+def _motor_limits(cons: JointCons, imp: JointImp, wA, wB, qA, qB, h, inv_h, use_bias: bool, mode: str = "soft"):
+    """Motor and angle limits of the revolute joint: `mode` "rigid"
+    (revolute_joint.c:174-219), "soft" (:527-603) or "baumgarte" (:679-747).
+    Returns (wA, wB, imp)."""
     iA, iB = cons.inv_i_a, cons.inv_i_b
     fixed_rot = (iA + iB) == 0.0
     rev = ~cons.is_mouse & cons.active
@@ -169,13 +175,17 @@ def _motor_limits(cons: JointCons, imp: JointImp, wA, wB, qA, qB, h, inv_h, use_
 
     def limit(C, cdot, old, scale_imp):
         spec = C > 0.0
-        if use_bias:
+        mass_scale, imp_scale = 1.0, 0.0
+        if mode == "rigid":
+            bias = torch.clamp(C, min=0.0) * inv_h
+        elif mode == "baumgarte":
+            bias = torch.where(spec, C * inv_h, BAUMGARTE * inv_h * C if use_bias else 0.0)
+        elif use_bias:
             bias = torch.where(spec, C * inv_h, cons.bias_coef * C)
             mass_scale = torch.where(spec, 1.0, cons.mass_coef)
             imp_scale = torch.where(spec, 0.0, cons.imp_coef)
         else:
             bias = torch.where(spec, C * inv_h, 0.0)
-            mass_scale, imp_scale = 1.0, 0.0
         impulse = -cons.axial_mass * mass_scale * (cdot + bias) - imp_scale * scale_imp
         return torch.clamp(old + impulse, min=0.0)
 
@@ -210,15 +220,16 @@ def _mouse_angular_damping(cons: JointCons, imp: JointImp, wB, h):
 
 
 def solve_joint_core(cons: JointCons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp: JointImp,
-                     h, inv_h, use_bias: bool, solve_mouse: bool = True):
-    """The soft velocity solve of every joint, elementwise. Returns (vA, wA,
+                     h, inv_h, use_bias: bool, solve_mouse: bool = True, mode: str = "soft"):
+    """The velocity solve of every joint, elementwise, in `mode` "soft",
+    "rigid" or "baumgarte" (the mouse joint always soft). Returns (vA, wA,
     vB, wB, new_impulse, imp2, scope): velocities outside `scope` are the
     inputs; the caller keeps the impulses of the joints it applies."""
     mA, iA = cons.inv_mass_a, cons.inv_i_a
     mB, iB = cons.inv_mass_b, cons.inv_i_b
     vA0, wA0, vB0, wB0 = vA, wA, vB, wB
 
-    wA, wB, imp2 = _motor_limits(cons, imp, wA, wB, qA, qB, h, inv_h, use_bias)
+    wA, wB, imp2 = _motor_limits(cons, imp, wA, wB, qA, qB, h, inv_h, use_bias, mode)
     if solve_mouse:
         wB, imp2 = _mouse_angular_damping(cons, imp2, wB, h)
 
@@ -232,11 +243,15 @@ def solve_joint_core(cons: JointCons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp: Joi
         mouse, dcB + rB + cons.center_diff0, (dcB - dcA) + (rB - rA) + cons.center_diff0
     )
     # the mouse joint always uses its soft coefficients (mouse_joint.c:133-159)
-    if use_bias:
+    if mode == "soft" and use_bias:
         bias = cons.bias_coef[..., None] * separation
         mass_scale, imp_scale = cons.mass_coef, cons.imp_coef
     else:
-        bias = torch.where(mouse, cons.bias_coef[..., None] * separation, 0.0)
+        soft_bias = cons.bias_coef[..., None] * separation
+        if mode == "baumgarte":  # always biased (revolute_joint.c:762-763)
+            bias = torch.where(mouse, soft_bias, BAUMGARTE * inv_h * separation)
+        else:
+            bias = torch.where(mouse, soft_bias, 0.0)
         mass_scale = torch.where(cons.is_mouse, cons.mass_coef, 1.0)
         imp_scale = torch.where(cons.is_mouse, cons.imp_coef, 0.0)
 
@@ -276,4 +291,123 @@ def store_impulses(joints, cons: JointCons, imp: JointImp):
         motor_impulse=torch.where(a, imp.motor, joints.motor_impulse),
         lower_impulse=torch.where(a, imp.lower, joints.lower_impulse),
         upper_impulse=torch.where(a, imp.upper, joints.upper_impulse),
+    )
+
+
+# ------------------------------------------------------- the per-world passes
+#
+# Joint sets [W, J] with their body indices ia, ib [W, J], applied to the
+# packed body state [W, B, 8] through a slot table (`common.gather_apply`).
+
+
+def warm_start_apply(bs, cons: JointCons, ia, ib, imp: JointImp, slot_k):
+    """Warm start one joint set (revolute_joint.c:107-150,
+    mouse_joint.c:85-107)."""
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    rA = m.rotate(qA, cons.local_anchor_a)
+    rB = m.rotate(qB, cons.local_anchor_b)
+    axial = torch.where(cons.is_mouse, imp.motor, imp.motor + imp.lower - imp.upper)
+    P = imp.impulse
+    vA2 = vA - cons.inv_mass_a[..., None] * P
+    wA2 = wA - cons.inv_i_a * (m.cross(rA, P) + axial)
+    vB2 = vB + cons.inv_mass_b[..., None] * P
+    wB2 = wB + cons.inv_i_b * (m.cross(rB, P) + axial)
+    return gather_apply(bs, slot_k, ia, pack_body_state(vA2, wA2, dcA, qA), pack_body_state(vB2, wB2, dcB, qB))
+
+
+def solve_pass(carry, cons: JointCons, ia, ib, mode: str, h, inv_h, use_bias: bool, slot_k, upd,
+               solve_mouse: bool = True):
+    """One joint velocity pass over a set: `upd` marks the joints whose
+    impulses are kept (the dense path's color-k winners, the bucketed
+    path's winners of the slice), to which `scope` is added. carry = (bs,
+    imp)."""
+    bs, imp = carry
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    vA, wA, vB, wB, new_imp, imp2, scope = solve_joint_core(
+        cons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp, h, inv_h, use_bias, solve_mouse, mode
+    )
+    upd = upd & scope
+    bs = gather_apply(bs, slot_k, ia, pack_body_state(vA, wA, dcA, qA), pack_body_state(vB, wB, dcB, qB))
+    return bs, JointImp(
+        impulse=torch.where(upd[..., None], new_imp, imp.impulse),
+        motor=torch.where(upd, imp2.motor, imp.motor),
+        lower=torch.where(upd, imp2.lower, imp.lower),
+        upper=torch.where(upd, imp2.upper, imp.upper),
+    )
+
+
+def position_apply(bs, cons: JointCons, ia, ib, slot_k):
+    """The NGS position solve of a joint set (revolute_joint.c:305-419): the
+    angular limit's correction, then the point-to-point projection; mouse
+    joints are left alone (joint.c:353-364)."""
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    fixed_rot = (iA + iB) == 0.0
+    rev = ~cons.is_mouse & cons.active
+
+    # angular limit (revolute_joint.c:322-346)
+    do_limit = rev & cons.enable_limit & ~fixed_rot
+    angle = m.relative_angle(qB, qA) - cons.reference_angle
+    equal = torch.abs(cons.upper_angle - cons.lower_angle) < 2.0 * ANGULAR_SLOP
+    C_eq = torch.clamp(angle - cons.lower_angle, min=-MAX_ANGULAR_CORRECTION, max=MAX_ANGULAR_CORRECTION)
+    C_lo = torch.clamp(angle - cons.lower_angle + ANGULAR_SLOP, min=-MAX_ANGULAR_CORRECTION, max=0.0)
+    C_hi = torch.clamp(angle - cons.upper_angle - ANGULAR_SLOP, min=0.0, max=MAX_ANGULAR_CORRECTION)
+    C = torch.where(
+        equal, C_eq,
+        torch.where(angle <= cons.lower_angle, C_lo, torch.where(angle >= cons.upper_angle, C_hi, 0.0)),
+    )
+    limit_imp = torch.where(do_limit, -cons.axial_mass * C, 0.0)
+    qA2 = m.integrate_rot(qA, -iA * limit_imp)
+    qB2 = m.integrate_rot(qB, iB * limit_imp)
+
+    # point to point (revolute_joint.c:348-413)
+    rA = m.rotate(qA2, cons.local_anchor_a)
+    rB = m.rotate(qB2, cons.local_anchor_b)
+    Cp = (dcB - dcA) + (rB - rA) + cons.center_diff0
+    impulse = _solve_sym(*_pivot_k(rA, rB, mA, mB, iA, iB), -Cp)
+    impulse = torch.where(rev[..., None], impulse, 0.0)
+    dcA2 = dcA - mA[..., None] * impulse
+    qA2 = m.integrate_rot(qA2, -iA * m.cross(rA, impulse))
+    dcB2 = dcB + mB[..., None] * impulse
+    qB2 = m.integrate_rot(qB2, iB * m.cross(rB, impulse))
+
+    revn = rev[..., None]
+    out_a = torch.where(revn, pack_body_state(vA, wA, dcA2, qA2), rows_a)
+    out_b = torch.where(revn, pack_body_state(vB, wB, dcB2, qB2), rows_b)
+    return gather_apply(bs, slot_k, ia, out_a, out_b)
+
+
+def bucket_joints(cons: JointCons, ia, ib, imp: JointImp, bucket):
+    """Prepared joints, their bodies and impulses in bucket order; pad rows
+    are inactive. Returns (cons, ia, ib, imp)."""
+    n = len(cons)
+    outs, valid = permute_rows(tuple(cons) + (ia, ib) + tuple(imp), bucket)
+    cons_b = JointCons(*outs[:n])
+    return cons_b._replace(active=cons_b.active & valid), outs[n], outs[n + 1], JointImp(*outs[n + 2:])
+
+
+def store_impulses_bucketed(joints, cons_b: JointCons, bucket, imp_b: JointImp):
+    """Store bucketed joint impulses in their joints' slots (the bucketed
+    store_impulses)."""
+    J = joints.impulse.shape[1]
+    idx = torch.where(cons_b.active, torch.clamp(bucket, min=0), J).long()
+
+    def put(tgt, src):
+        pad = torch.cat([tgt, torch.zeros_like(tgt[:, :1])], dim=1)
+        i = idx.reshape(idx.shape + (1,) * (tgt.dim() - 2)).expand(src.shape)
+        return pad.scatter(1, i, src)[:, :J]
+
+    return dataclasses.replace(
+        joints,
+        impulse=put(joints.impulse, imp_b.impulse),
+        motor_impulse=put(joints.motor_impulse, imp_b.motor),
+        lower_impulse=put(joints.lower_impulse, imp_b.lower),
+        upper_impulse=put(joints.upper_impulse, imp_b.upper),
     )

@@ -16,14 +16,20 @@ Two behaviours of the JAX lane path are reproduced as they are: the
 per-world `mismatch` adds on top of world 0's shared overflow in
 `color_overflow`, and world 0's gravity and shape geometry serve every world.
 
-`step`, the JAX `step` with the fused solver (`use_pallas_solver=True`,
-incremental coloring, no buckets) vmapped over worlds (`parallel.batch`):
-each world has its own pairs (`find_pairs_grid`, `match_contacts`), its
-narrowphase through K2 with the worlds flattened into one lane batch
-(`update_manifolds`), its own contact and joint colors and body maps, and
-the soft solve of contacts and soft revolute and mouse joints in one
-launch of K1 (`solvers/loops.solve_prepared`), in the script of
-`config.solver`: TGS_Soft, SoftStep or PGS_Soft.
+`step`, the JAX `step` vmapped over worlds (`parallel.batch`): each world
+has its own pairs (`find_pairs_grid`, `match_contacts`), its narrowphase
+through K2 with the worlds flattened into one lane batch
+(`update_manifolds`; skipped with `solve_contacts=False`), its own
+incremental contact and joint colors and body maps (and, on the bucketed
+layout, its color buckets), then one of two solve routes
+(`config.use_fused`):
+- fused: the soft solve of contacts and soft revolute and mouse joints in
+  one launch of K1 (`solvers/loops.solve_prepared`), in the script of
+  `config.solver`: TGS_Soft, SoftStep or PGS_Soft;
+- XLA: the JAX package's XLA solver of `config.solver`
+  (`solvers/loops.SOLVERS`), colored passes in plain PyTorch, dense or
+  color-bucketed (`contact_bucket_cap`, `joint_bucket_cap`), replayed from
+  a CUDA graph on the card (`solvers/graphs.py`).
 """
 
 from __future__ import annotations
@@ -33,16 +39,20 @@ from typing import NamedTuple
 
 import torch
 
-from .config import SPECULATIVE_DISTANCE, SimConfig
+from .config import BUCKETABLE_SOLVERS, SPECULATIVE_DISTANCE, SimConfig, use_fused
 from .ops import broadphase, coloring
 from .ops.geometry import compute_aabbs
 from .ops.narrow_cuda import collide
-from .solvers.common import ContactCons, make_body_map
+from .solvers.common import BodyMap, ContactCons, make_body_map
 from .solvers.fused_solve import FusedInputs
 from .solvers.joints import JointCons
 from .solvers.lane_solve import build_lane_structure, lane_solve
-from .solvers.loops import prepare_fused, solve_prepared
+from .solvers.loops import Colors, prepare_fused, solve_prepared, solve_xla
 from .state import Contacts, Diagnostics, Joints, State
+
+# the JAX package's narrowphase names, which compute the same math: the
+# port runs K2 for each
+NARROWPHASES = ("xla", "lanes", "pallas")
 
 I32 = torch.int32
 
@@ -170,14 +180,13 @@ def world_narrow_inputs(batch: State, contacts: Contacts):
     )
 
 
-def update_manifolds(batch: State, contacts: Contacts, gjk_iters: int, impl: str = "lanes") -> Contacts:
+def update_manifolds(batch: State, contacts: Contacts, gjk_iters: int, impl: str = "xla") -> Contacts:
     """The narrowphase of every world's own contacts through K2, then id
-    matching (reference: src/contact.c:296-359). `impl` "lanes" and
-    "pallas" both run K2; the per-pair "xla" narrowphase is not ported."""
-    if impl not in ("lanes", "pallas"):
-        raise NotImplementedError(
-            f"narrowphase {impl!r}: only the lane-major narrowphase (K2) is ported (ROADMAP item 10)"
-        )
+    matching (reference: src/contact.c:296-359). Every `impl` of the JAX
+    package ("xla", the per-pair manifold; "lanes" and "pallas", its
+    lane-major mirror) computes the same math, and each runs K2 here."""
+    if impl not in NARROWPHASES:
+        raise ValueError(f"narrowphase {impl!r}: one of {', '.join(NARROWPHASES)}")
     W, C = contacts.key.shape
     fout, iout, cout = collide(*world_narrow_inputs(batch, contacts), gjk_iters)
 
@@ -261,46 +270,109 @@ def step_batch(batch: State, dt: float, config: SimConfig) -> State:
 
 def _pre_solve(batch: State, config: SimConfig):
     """Per world: pair update from last step's fat AABBs, persistent
-    matching, narrowphase. Returns (contacts, pairs, shape body types)."""
+    matching, narrowphase (statically skipped with `solve_contacts=False`:
+    pairs and matching still run, so `pair_count` shows any pair that
+    appears). Returns (contacts, pairs, shape body types)."""
     shapes, bodies = batch.shapes, batch.bodies
     B = bodies.type.shape[1]
     sbt = torch.where(shapes.alive, torch.gather(bodies.type, 1, broadphase.wrap_index(shapes.body, B).long()), 0)
     jointed = broadphase.jointed_body_keys(batch.joints, config)
     pairs = broadphase.find_pairs_grid(shapes, bodies.type, jointed, config)
     contacts = broadphase.match_contacts(batch.contacts, pairs, shapes)
-    contacts = update_manifolds(batch, contacts, config.gjk_iters)
+    if config.solve_contacts:
+        contacts = update_manifolds(batch, contacts, config.gjk_iters, config.narrowphase)
     return contacts, pairs, sbt
 
 
+def _inert_map(W, B, K, N, device):
+    """The body map of a statically skipped constraint kind: no slot, no winner."""
+    return BodyMap(slot=torch.full((W, B, K), -1, dtype=I32, device=device),
+                   winner=torch.zeros((W, N), dtype=torch.bool, device=device))
+
+
+def _buckets(color, active, body_a, body_b, dyn, K, cap, B, write_a_extra=None):
+    """A kind's color buckets per world and the body map of its bucketed
+    rows. Returns (bucket, new color, body map, overflow [W]): the
+    constraints past a color's cap and the active rows that lost the map."""
+    bucket, color, drop = coloring.build_color_buckets(color, active, K, cap)
+    W = color.shape[0]
+    worlds = torch.arange(W, device=color.device)[:, None]
+    bi = torch.clamp(bucket, min=0)
+    active_b = active[worlds, bi] & (bucket >= 0)
+    color_b = torch.arange(K, dtype=I32, device=color.device).repeat_interleave(cap).expand(W, -1)
+    extra = None if write_a_extra is None else write_a_extra[worlds, bi]
+    bmap = make_body_map(body_a[worlds, bi], body_b[worlds, bi], color_b, active_b, dyn, B, K, write_a_extra=extra)
+    return bucket, color, bmap, drop + (active_b & ~bmap.winner).sum(dim=1)
+
+
 def _color(batch: State, contacts: Contacts, config: SimConfig):
-    """Per world: incremental contact and joint colors and their body maps.
-    Returns (contacts, joints, (ccolor, cmap, jcolor, jmap), overflow [W])."""
+    """Per world: incremental contact and joint colors and their body maps,
+    as the JAX `step` makes them (step.py:310-457): a statically skipped
+    kind keeps its carried colors and gets an inert map; on the XLA route
+    a kind with a bucket cap gets its color buckets, whose dropped rows and
+    map losers count as overflow. Returns (contacts, joints, Colors,
+    overflow [W])."""
     bodies, joints = batch.bodies, batch.joints
+    W = bodies.type.shape[0]
     B = config.max_bodies
+    dev = bodies.type.device
     dyn = (bodies.type == 2) & bodies.alive
     touching = contacts.alive & (contacts.point_count > 0)
-    ccolor, c_overflow = coloring.assign_colors(
-        contacts.color, contacts.body_a, contacts.body_b, touching, dyn, B, config.max_colors,
-        rounds=config.color_rounds,
-    )
-    c_active = touching & (ccolor >= 0)
-    jcolor, j_overflow = coloring.assign_colors(
-        joints.color, joints.body_a, joints.body_b, joints.alive, dyn, B, config.joint_max_colors,
-        rounds=config.color_rounds,
-    )
-    cmap = make_body_map(contacts.body_a, contacts.body_b, ccolor, c_active, dyn, B, config.max_colors)
-    # mouse joints never write body A
-    jmap = make_body_map(
-        joints.body_a, joints.body_b, jcolor, joints.alive & (jcolor >= 0), dyn, B, config.joint_max_colors,
-        write_a_extra=joints.type != 1,
-    )
-    overflow = c_overflow + (c_active & ~cmap.winner).sum(dim=1) + j_overflow
-    return (dataclasses.replace(contacts, color=ccolor), dataclasses.replace(joints, color=jcolor),
-            (ccolor, cmap, jcolor, jmap), overflow)
+    fused = use_fused(config)
+    bucketed = (config.contact_bucket_cap > 0 and config.solver in BUCKETABLE_SOLVERS and not fused
+                and config.solve_contacts)
+    jbucketed = config.joint_bucket_cap > 0 and not fused and config.solve_joints
+    zero = torch.zeros(W, dtype=I32, device=dev)
+    bucket = jbucket = None
+
+    ccolor, c_overflow = contacts.color, zero
+    if config.solve_contacts:
+        ccolor, c_overflow = coloring.assign_colors(
+            contacts.color, contacts.body_a, contacts.body_b, touching, dyn, B, config.max_colors,
+            rounds=config.color_rounds, bucket_cap=config.contact_bucket_cap if bucketed else 0,
+        )
+        c_active = touching & (ccolor >= 0)
+        if bucketed:
+            bucket, ccolor, cmap, c_drop = _buckets(
+                ccolor, c_active, contacts.body_a, contacts.body_b, dyn, config.max_colors,
+                config.contact_bucket_cap, B,
+            )
+        else:
+            cmap = make_body_map(contacts.body_a, contacts.body_b, ccolor, c_active, dyn, B, config.max_colors)
+            c_drop = (c_active & ~cmap.winner).sum(dim=1)
+        c_overflow = c_overflow + c_drop
+    else:
+        cmap = _inert_map(W, B, config.max_colors, config.max_contacts, dev)
+
+    jcolor, j_overflow = joints.color, zero
+    if config.solve_joints:
+        jcolor, j_overflow = coloring.assign_colors(
+            joints.color, joints.body_a, joints.body_b, joints.alive, dyn, B, config.joint_max_colors,
+            rounds=config.color_rounds, bucket_cap=config.joint_bucket_cap if jbucketed else 0,
+        )
+        j_active = joints.alive & (jcolor >= 0)
+        # mouse joints never write body A
+        not_mouse = joints.type != 1
+        if jbucketed:
+            jbucket, jcolor, jmap, j_drop = _buckets(
+                jcolor, j_active, joints.body_a, joints.body_b, dyn, config.joint_max_colors,
+                config.joint_bucket_cap, B, write_a_extra=not_mouse,
+            )
+            j_overflow = j_overflow + j_drop
+        else:
+            jmap = make_body_map(joints.body_a, joints.body_b, jcolor, j_active, dyn, B, config.joint_max_colors,
+                                 write_a_extra=not_mouse)
+    else:
+        jmap = _inert_map(W, B, config.joint_max_colors, config.max_joints, dev)
+
+    colors = Colors(ccolor, cmap, jcolor, jmap, bucket, jbucket)
+    return (dataclasses.replace(contacts, color=ccolor), dataclasses.replace(joints, color=jcolor), colors,
+            c_overflow + j_overflow)
 
 
 class Prepared(NamedTuple):
-    """What the per-world step has made of a batch before its solve."""
+    """What the per-world step's fused route has made of a batch before
+    its solve."""
 
     contacts: Contacts
     joints: Joints
@@ -314,23 +386,34 @@ class Prepared(NamedTuple):
 
 
 def prepare(batch: State, dt: float, config: SimConfig) -> Prepared:
-    """The per-world step up to its solve: pairs, narrowphase, colors and
-    body maps, the prepared constraints and the fused solve's inputs."""
+    """The per-world step's fused route up to its solve: pairs,
+    narrowphase, colors and body maps, the prepared constraints and the
+    fused solve's inputs."""
+    assert use_fused(config), "prepare is the fused route's (use_fused_solver)"
     contacts, pairs, sbt = _pre_solve(batch, config)
     touching = contacts.alive & (contacts.point_count > 0)
     contacts, joints, colors, overflow = _color(batch, contacts, config)
     dt_t = torch.tensor(float(dt), dtype=torch.float32, device=batch.gravity.device)
-    x, cons, jcons = prepare_fused(batch.bodies, contacts, joints, *colors, batch.gravity, dt_t, config)
+    x, cons, jcons = prepare_fused(batch.bodies, contacts, joints, *colors[:4], batch.gravity, dt_t, config)
     return Prepared(contacts, joints, x, cons, jcons, pairs, sbt, touching, overflow)
 
 
 def step(batch: State, dt: float, config: SimConfig) -> State:
     """One step of every world of a [W, ...] batch, each on its own (the
-    JAX `step` vmapped over worlds, with the fused solver). Runs on the
-    batch's device."""
+    JAX `step` vmapped over worlds), through the fused solve (K1) or the
+    XLA solvers (`config.use_fused`). Runs on the batch's device."""
     assert not config.lane_solve, "step is the per-world step (freeze with lane_solve=False)"
-    p = prepare(batch, dt, config)
-    new_bodies, contacts, joints = solve_prepared(batch.bodies, p.contacts, p.joints, p.x, p.cons, p.jcons, config)
-    return _post_solve(
-        batch, new_bodies, contacts, joints, p.pairs.count, p.pairs.overflow, p.sbt, p.touching, p.overflow,
-    )
+    if use_fused(config):
+        p = prepare(batch, dt, config)
+        new_bodies, contacts, joints = solve_prepared(
+            batch.bodies, p.contacts, p.joints, p.x, p.cons, p.jcons, config
+        )
+        return _post_solve(
+            batch, new_bodies, contacts, joints, p.pairs.count, p.pairs.overflow, p.sbt, p.touching, p.overflow,
+        )
+    contacts, pairs, sbt = _pre_solve(batch, config)
+    touching = contacts.alive & (contacts.point_count > 0)
+    contacts, joints, colors, overflow = _color(batch, contacts, config)
+    dt_t = torch.tensor(float(dt), dtype=torch.float32, device=batch.gravity.device)
+    new_bodies, contacts, joints = solve_xla(batch.bodies, contacts, joints, colors, batch.gravity, dt_t, config)
+    return _post_solve(batch, new_bodies, contacts, joints, pairs.count, pairs.overflow, sbt, touching, overflow)

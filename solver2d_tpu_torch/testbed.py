@@ -3,13 +3,15 @@
 An own copy of the JAX package's `testbed.py` for the port (reference:
 samples/main.cpp, sample.cpp): runs one catalog scene under one or more
 solvers (one world per solver, main.cpp:705-711), steps them in
-lockstep with the scene's hooks on the per-world step (`batched_step`, K2
-then K1), and prints the per-solver stats overlay (sample.cpp:144-156).
+lockstep with the scene's hooks on the per-world step (`batched_step`: K2,
+then K1 for the soft solvers where a world fits it, else the XLA solvers),
+and prints the per-solver stats overlay (sample.cpp:144-156).
 
 Usage:
   python -m solver2d_tpu_torch.testbed --list
-  python -m solver2d_tpu_torch.testbed "Contact/Pyramid" --solvers TGS_SOFT,PGS_SOFT --steps 240
+  python -m solver2d_tpu_torch.testbed "Contact/Pyramid" --solvers TGS_SOFT,PGS_NGS_BLOCK --steps 240
   python -m solver2d_tpu_torch.testbed "Joints/Ragdoll Stress" --solvers all --steps 240
+  python -m solver2d_tpu_torch.testbed "Joints/Joint Grid" --solvers PGS_NGS --steps 60 --bucket-cap -1
 
 Settings mirror samples/settings.h:16-24: 60 Hz, 4 primary iterations, 2
 secondary, warm starting on. The scene runs on the card; `run_scene(...,
@@ -25,23 +27,23 @@ import time
 
 import torch
 
-from .config import FUSED_SOLVERS, SolverType
+from .config import XLA_SOLVERS, SolverType
 from .models import build, scene_names
 from .parallel.batch import batched_step, replicate
 from .utils.metrics import statistics
 
 
 def parse_solvers(spec: str) -> list[SolverType]:
-    """A comma list of solver names, or "all" (the per-world step's fused
-    solvers). A solver that is not ported raises."""
+    """A comma list of solver names, or "all" (the eight solvers of the
+    per-world step). A solver that is not ported raises."""
     if spec == "all":
-        return sorted(FUSED_SOLVERS)
+        return sorted(XLA_SOLVERS)
     solvers = [SolverType[s.strip()] for s in spec.split(",")]
-    missing = [s.name for s in solvers if s not in FUSED_SOLVERS]
+    missing = [s.name for s in solvers if s not in XLA_SOLVERS]
     if missing:
-        ported = ", ".join(s.name for s in sorted(FUSED_SOLVERS))
+        ported = ", ".join(s.name for s in sorted(XLA_SOLVERS))
         raise ValueError(
-            f"solver(s) {', '.join(missing)} not ported: the port runs {ported} (the other seven solvers are ROADMAP "
+            f"solver(s) {', '.join(missing)} not ported: the port runs {ported} (TGS_STICKY and XPBD are ROADMAP "
             "item 6)"
         )
     return solvers
@@ -57,11 +59,14 @@ def run_scene(
     extra_iterations: int = 2,
     warm_start: bool = True,
     multi_steps: int = 1,
+    bucket_cap: int = 0,
     device="cuda",
     verbose: bool = True,
 ):
     """Step the scene `steps` frames under each solver (a batch of one
-    world each). Returns {solver: dict(scene, state, cfg, step, ms)}."""
+    world each). `bucket_cap` is the contact bucket capacity of the XLA
+    route (-1 auto, 0 dense). Returns {solver: dict(scene, state, cfg,
+    step, ms)}."""
     parse_solvers(",".join(s.name for s in solvers))
     dt = 1.0 / hertz if hertz > 0 else 0.0
     dev = torch.device(device)
@@ -70,6 +75,7 @@ def run_scene(
         scene = build(category, name, solver)
         state, cfg = scene.freeze(
             device=dev, iterations=iterations, extra_iterations=extra_iterations, warm_start=warm_start,
+            contact_bucket_cap=bucket_cap,
         )
         runs[solver] = dict(scene=scene, state=replicate(state, 1), cfg=cfg, step=batched_step(cfg), ms=0.0)
 
@@ -110,7 +116,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("scene", nargs="?", help="Category/Name, e.g. 'Contact/Pyramid'")
     p.add_argument("--list", action="store_true", help="list the scene catalog")
-    p.add_argument("--solvers", default="TGS_SOFT", help="comma list or 'all' (TGS_SOFT, SOFT_STEP, PGS_SOFT)")
+    p.add_argument("--solvers", default="PGS_NGS_BLOCK",
+                   help="comma list or 'all' (the eight ported solvers; TGS_STICKY and XPBD are not ported)")
     p.add_argument("--steps", type=int, default=240)
     p.add_argument("--hertz", type=float, default=60.0)
     p.add_argument("--iters", type=int, default=4)
@@ -118,6 +125,8 @@ def main(argv=None):
     p.add_argument("--no-warm-start", action="store_true")
     p.add_argument("--multi-steps", type=int, default=1,
                    help="world-steps per frame (reference: samples/sample.cpp:130-137)")
+    p.add_argument("--bucket-cap", type=int, default=0,
+                   help="color-bucketed solve per-color capacity (-1 auto, 0 dense)")
     args = p.parse_args(argv)
 
     if args.list or not args.scene:
@@ -129,7 +138,7 @@ def main(argv=None):
     run_scene(
         category, name, parse_solvers(args.solvers),
         steps=args.steps, hertz=args.hertz, iterations=args.iters, extra_iterations=args.extra_iters,
-        warm_start=not args.no_warm_start, multi_steps=args.multi_steps,
+        warm_start=not args.no_warm_start, multi_steps=args.multi_steps, bucket_cap=args.bucket_cap,
     )
     return 0
 

@@ -18,12 +18,16 @@ import torch
 from .config import (
     AABB_MARGIN,
     FUSED_SOLVERS,
+    K1_BODY_BYTES,
+    K1_SMEM_BYTES,
     LANE_SOLVERS,
     MAX_POLYGON_VERTICES,
     SPECULATIVE_DISTANCE,
+    XLA_SOLVERS,
     BodyType,
     SimConfig,
     SolverType,
+    k1_fits,
 )
 from .ops import geometry
 from .state import Bodies, Contacts, Diagnostics, Joints, Shapes, State
@@ -95,12 +99,6 @@ class _Joint:
     damping_ratio: float = 0.0
 
 
-# K1 (csrc/fused_solve.cu) keeps each world's body state and per-body
-# constants, 16 floats a body, in shared memory: at most 227 KB a block
-K1_SMEM_BYTES = 232448
-K1_BODY_BYTES = 16 * 4
-
-
 def _rot_of(angle):
     return np.array([np.sin(angle), np.cos(angle)], np.float64)
 
@@ -117,7 +115,7 @@ def _round(n, m):
 class World:
     """Scene builder. One instance per scene; `freeze()` to simulate."""
 
-    def __init__(self, solver: SolverType = SolverType.TGS_SOFT, gravity=(0.0, -10.0)):
+    def __init__(self, solver: SolverType = SolverType.PGS_NGS_BLOCK, gravity=(0.0, -10.0)):
         self.solver = solver
         self.gravity = np.asarray(gravity, np.float64)
         self.bodies: list[_Body] = []
@@ -343,9 +341,12 @@ class World:
 
     def freeze(self, config: Optional[SimConfig] = None, device="cuda", **overrides) -> tuple[State, SimConfig]:
         """Pack the scene into a `State` on `device` and its `SimConfig`.
-        `contact_bucket_cap=-1` sizes the lane step's bucket capacity to
-        twice the uniform share of the contact table. `lane_solve=False`
-        configures the per-world step."""
+        `contact_bucket_cap=-1` (`joint_bucket_cap=-1`) sizes a bucket
+        capacity to twice the uniform share of the contact (joint) table.
+        `lane_solve=False` configures the per-world step; its route is
+        resolved here (`use_fused_solver`: K1 for its three soft solvers when
+        a world's bodies fit its shared memory, else the XLA solvers) and
+        the returned config names it."""
         if config is None:
             config = self.default_config(**overrides)
         assert config.max_bodies >= len(self.bodies)
@@ -355,24 +356,43 @@ class World:
         assert max(config.max_colors, config.joint_max_colors) <= 30, (
             "assign_colors packs colors into an int32 bitmask"
         )
+        assert config.solve_joints or not self.joints, (
+            "solve_joints=False is for joint-free scenes; this scene's joints would be ignored"
+        )
+        if not config.incremental_coloring:
+            raise ValueError("incremental_coloring=False needs coloring.color_graph, not ported (ROADMAP item 7)")
         if config.lane_solve:
             assert config.solver in LANE_SOLVERS, f"the lane step runs {sorted(s.name for s in LANE_SOLVERS)}"
             assert config.contact_bucket_cap != 0, "the lane step needs the bucketed layout"
             assert not self.joints, "the lane step solves no joints"
+            config = config.replace(use_fused_solver=False)
         else:
-            assert config.solver in FUSED_SOLVERS, (
-                f"the per-world step's fused solve runs {sorted(s.name for s in FUSED_SOLVERS)}"
-            )
-            if config.max_bodies * K1_BODY_BYTES > K1_SMEM_BYTES:
+            if config.solver not in XLA_SOLVERS:
+                ported = ", ".join(s.name for s in sorted(XLA_SOLVERS))
                 raise ValueError(
-                    f"max_bodies={config.max_bodies}: the fused solve (K1) keeps a world's bodies in shared "
-                    f"memory, at most {K1_SMEM_BYTES // K1_BODY_BYTES} a world; larger worlds wait for the "
-                    "XLA per-world solvers (ROADMAP item 5)"
+                    f"solver {config.solver.name} is not ported: the per-world step runs {ported} (TGS_STICKY and "
+                    "XPBD are ROADMAP item 6)"
                 )
-            config = config.replace(contact_bucket_cap=0)
+            fits = k1_fits(config)
+            if config.use_fused_solver is None:
+                config = config.replace(use_fused_solver=config.solver in FUSED_SOLVERS and fits)
+            elif config.use_fused_solver and config.solver not in FUSED_SOLVERS:
+                raise ValueError(
+                    f"use_fused_solver=True: the fused solve (K1) runs "
+                    f"{', '.join(s.name for s in sorted(FUSED_SOLVERS))}, not {config.solver.name}"
+                )
+            elif config.use_fused_solver and not fits:
+                raise ValueError(
+                    f"use_fused_solver=True with max_bodies={config.max_bodies}: the fused solve (K1) keeps a "
+                    f"world's bodies in shared memory, at most {K1_SMEM_BYTES // K1_BODY_BYTES} a world; larger "
+                    "worlds take the XLA solvers (use_fused_solver=False or None)"
+                )
         if config.contact_bucket_cap < 0:
             cap = -(-2 * config.max_contacts // config.max_colors)
             config = config.replace(contact_bucket_cap=(cap + 7) // 8 * 8)
+        if config.joint_bucket_cap < 0:
+            jcap = -(-2 * config.max_joints // config.joint_max_colors)
+            config = config.replace(joint_bucket_cap=(jcap + 7) // 8 * 8)
 
         for i, b in enumerate(self.bodies):
             if b.def_.type == BodyType.DYNAMIC and b.mass == 0.0 and b.shapes:

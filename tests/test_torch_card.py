@@ -377,3 +377,83 @@ def test_k2_matches_twin_on_the_catalog(card, scene):
     kinds = set(args[0][:, 32].int().tolist())
     assert {2, 1 if scene == "confined" else 4}.issubset(kinds)  # capsules with circles, or with boxes
     _same(narrow_cuda.collide(*args, cfg.gjk_iters), want)
+
+
+# ------------------------------------------------------------ the XLA route
+
+XLA_SOLVERS = ["JACOBI", "PGS", "PGS_NGS", "PGS_NGS_BLOCK", "PGS_SOFT", "SOFT_STEP", "TGS_SOFT", "TGS_NGS"]
+
+
+def _xla_world(scene, solver, layout):
+    """A small scene of the per-world step on its XLA route: the base-4
+    pyramid, or the 4-plank Bridge with a mouse joint on plank 3 held from
+    plank 1; `layout` "bucketed" sizes contact and joint buckets."""
+    from solver2d_tpu_torch import SolverType, bridge, pyramid_world
+
+    if scene == "pyramid":
+        world, _ = pyramid_world(SolverType[solver], 4)
+    else:
+        world = bridge(SolverType[solver], 4)[0]
+        x, y = world.bodies[3].def_.position
+        world.create_mouse_joint(1, 3, (x + 0.3, y + 1.0), 5.0, 0.7)
+    kw = dict(contact_bucket_cap=-1, joint_bucket_cap=-1) if layout == "bucketed" else {}
+    state, cfg = world.freeze(device="cpu", lane_solve=False, use_fused_solver=False, **kw)
+    assert cfg.use_fused_solver is False
+    return state, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+@pytest.mark.parametrize("scene", ["pyramid", "bridge"])
+@pytest.mark.parametrize("solver", XLA_SOLVERS)
+def test_xla_route_on_the_card_matches_the_cpu(card, solver, scene, layout):
+    """4 steps of 2 worlds on the card (the solve replayed from a CUDA graph
+    from the third) and on the CPU: positions within 1e-4, colors and
+    diagnostics equal; K2 once a step, K1 never."""
+    from solver2d_tpu_torch import batched_step, replicate
+    from solver2d_tpu_torch.solvers import fused_cuda
+
+    state, cfg = _xla_world(scene, solver, layout)
+    step = batched_step(cfg)
+    cpu = replicate(state, 2)
+    cpu.bodies.v = cpu.bodies.v + torch.where((cpu.bodies.type == 2)[..., None], 0.2, 0.0) * torch.arange(2)[:, None, None]
+    gpu = cpu.to(card)
+    k1, k2 = fused_cuda.fused_solve.launches, narrow_cuda.collide.launches
+    for _ in range(4):
+        cpu, gpu = step(cpu, 1.0 / 60.0), step(gpu, 1.0 / 60.0)
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_solve.launches == k1 and narrow_cuda.collide.launches == k2 + 4
+    assert float((gpu.bodies.position.cpu() - cpu.bodies.position).abs().max()) < 1e-4
+    assert torch.equal(gpu.contacts.color.cpu(), cpu.contacts.color)
+    assert torch.equal(gpu.joints.color.cpu(), cpu.joints.color)
+    for k in ("color_overflow", "pair_overflow", "contact_count", "pair_count"):
+        assert torch.equal(getattr(gpu.diag, k).cpu(), getattr(cpu.diag, k)), k
+    assert int(gpu.diag.color_overflow.max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_NGS_BLOCK"])
+def test_xla_graph_replay_matches_eager(card, solver):
+    """The XLA solve replayed from a CUDA graph equals the eager solve on
+    the card bit for bit, over steps whose live colors change."""
+    from solver2d_tpu_torch import batched_step, replicate
+    from solver2d_tpu_torch.solvers import graphs
+
+    state, cfg = _xla_world("pyramid", solver, "dense")
+    step = batched_step(cfg)
+    runs, held = [], []
+    for enabled in (True, False):
+        graphs.ENABLED = enabled
+        graphs.clear()
+        try:
+            batch = replicate(state, 3).to(card)
+            for _ in range(6):
+                batch = step(batch, 1.0 / 60.0)
+            runs.append(batch)
+            held.append(len(graphs._graphs))
+        finally:
+            graphs.ENABLED = True
+    assert held == [held[0], 0] and held[0] > 0  # graphs replayed in the first run only
+    for name in ("position", "rot", "v", "w"):
+        assert torch.equal(getattr(runs[0].bodies, name), getattr(runs[1].bodies, name)), name
+    assert torch.equal(runs[0].contacts.normal_impulse, runs[1].contacts.normal_impulse)

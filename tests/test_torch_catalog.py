@@ -61,12 +61,16 @@ def test_scene_names_match_jax():
 
 @pytest.mark.parametrize("key", jax_scene_names(), ids=lambda k: f"{k[0]}-{k[1]}")
 def test_freeze_matches_jax(key):
-    """Every field the port keeps, bit for bit; the shared config fields."""
+    """Every field the port keeps, bit for bit; the shared config fields;
+    the route (`use_fused_solver`, the port's own field): K1 for these
+    TGS_Soft scenes, which all fit it."""
     jscene, pscene = _scenes(key, **SMALL.get(key, {}))
     jstate, jcfg = jscene.freeze()
     pstate, pcfg = pscene.freeze(device="cpu")
     for f in dataclasses.fields(pcfg):
-        assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
+        if f.name != "use_fused_solver":
+            assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert pcfg.use_fused_solver is True
     got = to_numpy(pstate)
     assert_tree_close(got, np_tree(jstate), EXACT)
     if key in (("Contact", "Arch"), ("Joints", "Ragdoll"), ("Far", "Ragdoll Pile")):
@@ -258,16 +262,25 @@ def test_testbed_stats_line_matches_jax(capsys):
 
 
 def test_unported_solver_is_refused():
+    """TGS_Sticky and XPBD are not ported (ROADMAP item 6); "all" is the
+    eight solvers of the per-world step."""
     with pytest.raises(ValueError, match="ROADMAP item 6"):
-        parse_solvers("TGS_SOFT,PGS_NGS_BLOCK")
+        parse_solvers("TGS_SOFT,TGS_STICKY")
     with pytest.raises(ValueError, match="ROADMAP item 6"):
         run_scene("Contact", "Single Box", [SolverType.XPBD], steps=1, device="cpu")
-    assert parse_solvers("all") == [SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT]
+    with pytest.raises(ValueError, match="ROADMAP item 6"):
+        SCENES[("Contact", "Single Box")](SolverType.TGS_STICKY).freeze(device="cpu")
+    S = SolverType
+    assert parse_solvers("all") == [S.JACOBI, S.PGS, S.PGS_NGS, S.PGS_NGS_BLOCK, S.PGS_SOFT, S.SOFT_STEP, S.TGS_SOFT,
+                                    S.TGS_NGS]
 
 
 def test_joint_grid_above_the_body_cap_is_refused():
-    """The published 100 x 100 Joint Grid builds; freezing it for K1 raises."""
+    """The published 100 x 100 Joint Grid freezes onto the XLA solvers (its
+    10,000 bodies are above K1's cap); asking for K1 explicitly raises."""
     scene = SCENES[("Joints", "Joint Grid")](SolverType.TGS_SOFT)
     assert len(scene.world.bodies) == 10000
-    with pytest.raises(ValueError, match="ROADMAP item 5"):
-        scene.freeze(device="cpu")
+    state, cfg = scene.freeze(device="cpu")
+    assert cfg.use_fused_solver is False and int(state.joints.alive.sum()) == 19800
+    with pytest.raises(ValueError, match="use_fused_solver=True"):
+        scene.freeze(device="cpu", use_fused_solver=True)

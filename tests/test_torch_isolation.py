@@ -45,6 +45,21 @@ SCRIPT = textwrap.dedent(
     scene, out = runs[SolverType.TGS_SOFT]["scene"], runs[SolverType.TGS_SOFT]["state"]
     out = runtime.destroy_body(scene.on_step(out, 120), 1)
     assert metrics.statistics(out).body_count == 2
+    # the XLA route: every ported solver, dense and bucketed, and a joint-bucketed Bridge
+    from solver2d_tpu_torch.config import XLA_SOLVERS
+    w3, _ = pyramid_world(SolverType.PGS_NGS_BLOCK, 3)
+    for solver in sorted(XLA_SOLVERS):
+        for cap in (0, -1):
+            state, cfg = w3.freeze(device="cpu", lane_solve=False, solver=solver, use_fused_solver=False,
+                                   iterations=1, extra_iterations=1, contact_bucket_cap=cap)
+            out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+            assert int(out.diag.contact_count[0]) > 0 and bool(torch.isfinite(out.bodies.position).all())
+    w, planks = bridge(SolverType.TGS_NGS, 4)
+    state, cfg = w.freeze(device="cpu", lane_solve=False, joint_bucket_cap=-1, iterations=1)
+    assert cfg.use_fused_solver is False and cfg.joint_bucket_cap > 0
+    out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+    assert float(joint_error(out).max()) < 0.1
+    assert testbed.parse_solvers("all") == sorted(XLA_SOLVERS)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "solver2d_tpu"))
     assert not [m for m in loaded if sys.modules[m] is not None], loaded
     print("isolated ok")

@@ -16,12 +16,17 @@ the configurations of `chip_smoke.py`:
   (the deepest contact penetration and the kinetic energy), "Joints/Ragdoll
   Stress" (`joint_error`, and its largest value over the run).
 
-Both run the solver given (TGS_SOFT by default, SOFT_STEP or PGS_SOFT: the
-fused solvers of the per-world step). Prints both after every step, and the
-largest position difference between the two. The JAX figures, doubled, set
-chip_smoke's MAX_DRIFT_B, MAX_JOINT_ERROR_A and CATALOG_BOUNDS.
+Both run the solver given (TGS_SOFT by default, or any of the eight
+solvers of the port's per-world step); the JAX package always with its XLA
+solver (`use_pallas_solver=False`), the port on the route its `freeze`
+picks (K1 for the soft solvers where a world fits it), or on its XLA route
+with `--xla`. `--bucketed` runs both on the color-bucketed layout
+(`contact_bucket_cap=-1`, `joint_bucket_cap=-1`, sized by the JAX
+`freeze`). Prints both after every step, and the largest position
+difference between the two. The JAX figures, doubled, set chip_smoke's
+MAX_DRIFT_B, MAX_JOINT_ERROR_A, CATALOG_BOUNDS and XLA_BOUNDS.
 
-Usage: python tools/jax_world_bounds.py pyramid|bridge|"Category/Name" [steps] [solver]
+Usage: python tools/jax_world_bounds.py pyramid|bridge|"Category/Name" [steps] [solver] [--xla] [--bucketed]
 """
 
 import os
@@ -48,23 +53,29 @@ from solver2d_tpu_torch.utils.metrics import joint_error as port_joint_error  # 
 from solver2d_tpu_torch.utils.metrics import kinetic_energy as port_kinetic_energy  # noqa: E402
 
 
-def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT"):
+def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT", xla: bool = False,
+         bucketed: bool = False):
+    kw = dict(narrowphase="lanes", use_pallas_solver=False)
+    if bucketed:
+        kw.update(contact_bucket_cap=-1, joint_bucket_cap=-1)
     if scene == "pyramid":
         w, _ = pyramid_world(SolverType.TGS_SOFT, 20)
-        state, cfg = w.freeze(solver=SolverType[solver], narrowphase="lanes", max_contacts=896, max_colors=10,
-                              gjk_iters=10)
+        state, cfg = w.freeze(solver=SolverType[solver], max_contacts=896, max_colors=10, gjk_iters=10, **kw)
     elif scene == "bridge":
         w = bridge(SolverType.TGS_SOFT).world
-        state, cfg = w.freeze(solver=SolverType[solver], narrowphase="lanes", max_colors=8)
+        state, cfg = w.freeze(solver=SolverType[solver], max_colors=8, **kw)
     else:
         sc = build(*scene.split("/", 1), SolverType[solver])
         assert sc.pre_step is None and sc.on_step is None, "a scene with hooks"
-        state, cfg = sc.freeze(narrowphase="lanes")
+        state, cfg = sc.freeze(**kw)
         if not sc.world.joints:
             # the JAX solver's joint phases over an empty table change nothing
             cfg = cfg.replace(solve_joints=False)
     pcfg = port.SimConfig(**{k: getattr(cfg, k) for k in port.SimConfig.__dataclass_fields__ if hasattr(cfg, k)})
-    pcfg = pcfg.replace(lane_solve=False)
+    pcfg = pcfg.replace(lane_solve=False, use_fused_solver=False if xla else None)
+    print(f"{scene} {solver}: JAX use_pallas_solver={cfg.use_pallas_solver}, contact_bucket_cap "
+          f"{cfg.contact_bucket_cap}, joint_bucket_cap {cfg.joint_bucket_cap}; port route "
+          f"{'fused' if port.config.use_fused(pcfg) else 'XLA'}", flush=True)
     pstep = port.batched_step(pcfg)
     pbatch = port.replicate(port.state_from_numpy(jax.tree.map(np.asarray, state), device="cpu"), 1)
     p0 = np.asarray(state.bodies.position)
@@ -97,5 +108,6 @@ def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT"):
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    main(sys.argv[1] if len(sys.argv) > 1 else "pyramid", int(sys.argv[2]) if len(sys.argv) > 2 else 23,
-         sys.argv[3] if len(sys.argv) > 3 else "TGS_SOFT")
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    main(args[0] if args else "pyramid", int(args[1]) if len(args) > 1 else 23,
+         args[2] if len(args) > 2 else "TGS_SOFT", xla="--xla" in sys.argv, bucketed="--bucketed" in sys.argv)
