@@ -59,21 +59,30 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    outside PAIR_OVERFLOW_SCENES, Warm Start Energy's step-120 event fired,
    and CATALOG_BOUNDS met (Vertical Stack stands, Overlap Recovery
    separates, Ragdoll Stress and the Joint Grid hold their joints). Every
-   scene also runs under each solver only the XLA route runs (XLA_ONLY)
-   for CATALOG_CHECK + STEPS steps: finite, K2 once a step, K1 never;
+   scene also runs under each solver only the XLA route runs (XLA_ONLY,
+   TGS_Sticky and XPBD among them) for CATALOG_CHECK + XLA_ONLY_STEPS
+   steps: finite, K2 once a step, K1 never;
    Pyramid, Ragdoll Stress and Confined (XLA_CHECK_SCENES) also held to
    the CPU for their first CATALOG_CHECK steps (where the solver blows a
    scene up, within the CPU's own spread under a 1-ulp change of the
    initial velocities, if that exceeds the tolerance). Each run's ms/step,
-   world-steps/s and pair and color overflow;
+   world-steps/s and pair and color overflow. The XLA-only runs time
+   XLA_ONLY_STEPS steps after their first CATALOG_CHECK;
 9. the XLA route (`use_fused_solver=False`) on paths (b) and (a), under
-   each of its eight solvers on the dense layout, and under XLA_BUCKETED
-   on the bucketed one (`contact_bucket_cap=-1`, `joint_bucket_cap=-1`):
-   the first 3 steps of XLA_CHECK_WORLDS jittered worlds on the card equal
-   the CPU's (phase 5's tolerance, colors and diagnostics equal); then
-   WARMUP + STEPS steps of the path's worlds: finite, no color overflow,
-   the pyramid stands and the bridge holds within XLA_BOUNDS (twice the
-   JAX package's XLA solver on the CPU), K2 once a step, K1 never.
+   each of its ten solvers on the dense layout (TGS_Sticky and XPBD
+   among them), and under XLA_BUCKETED on the bucketed one
+   (`contact_bucket_cap=-1`, `joint_bucket_cap=-1`): the first 3 steps of
+   XLA_CHECK_WORLDS jittered worlds on the card equal the CPU's (phase 5's
+   tolerance, colors and diagnostics equal); then WARMUP + STEPS steps of
+   the path's worlds: finite, no color overflow, the pyramid stands and
+   the bridge holds within XLA_BOUNDS (twice the JAX package's XLA solver
+   on the CPU), K2 once a step, K1 never. Under TGS_Sticky on (b), the
+   share of live contacts whose friction anchors persisted must be above 0;
+10. the secondary paths on (b) under PGS_NGS_Block, the JAX package's
+   default solver, on the XLA route: the sweep-and-prune broadphase
+   (`SAP_KW`) and the per-step MIS coloring (`incremental_coloring=False`),
+   each checked as in phase 9 against SECONDARY_BOUNDS; the sweep and
+   prune without pair overflow.
 Each phase's seconds are printed.
 
 The line before the last is a JSON object with each kernel's numbers; the
@@ -102,11 +111,12 @@ W_A = 32
 # the fused solvers of the per-world step, each a script of K1
 FUSED = ("TGS_SOFT", "SOFT_STEP", "PGS_SOFT")
 # the solvers of the per-world step's XLA route, and those only it runs
-XLA = ("JACOBI", "PGS", "PGS_NGS", "PGS_NGS_BLOCK", "PGS_SOFT", "SOFT_STEP", "TGS_SOFT", "TGS_NGS")
-XLA_ONLY = ("PGS", "PGS_NGS", "PGS_NGS_BLOCK", "JACOBI", "TGS_NGS")
+XLA = ("JACOBI", "PGS", "PGS_NGS", "PGS_NGS_BLOCK", "PGS_SOFT", "SOFT_STEP", "TGS_SOFT", "TGS_NGS", "TGS_STICKY",
+       "XPBD")
+XLA_ONLY = ("PGS", "PGS_NGS", "PGS_NGS_BLOCK", "JACOBI", "TGS_NGS", "TGS_STICKY", "XPBD")
 # phase 9: the solvers also run on the bucketed layout, and the worlds held
 # to the CPU for the first 3 steps
-XLA_BUCKETED = ("TGS_SOFT", "PGS_NGS_BLOCK")
+XLA_BUCKETED = ("TGS_SOFT", "PGS_NGS_BLOCK", "XPBD")
 XLA_CHECK_WORLDS = 4
 # Largest box displacement of path (b) after WARMUP + STEPS steps, per
 # solver: twice the JAX package's on the CPU at this configuration and step
@@ -127,13 +137,28 @@ MAX_JOINT_ERROR_A = {"TGS_SOFT": 0.0098, "SOFT_STEP": 2 * 0.002153, "PGS_SOFT": 
 # finite and near the reference's.
 JAX_XLA = {
     ("b", "dense"): {"TGS_SOFT": 0.026405, "SOFT_STEP": 0.026405, "PGS_SOFT": 0.051025, "PGS": 0.066842,
-                     "PGS_NGS": 0.043601, "PGS_NGS_BLOCK": 0.052260, "JACOBI": 426.438171, "TGS_NGS": 0.014633},
-    ("b", "bucketed"): {"TGS_SOFT": 0.026405, "PGS_NGS_BLOCK": 0.052260},
+                     "PGS_NGS": 0.043601, "PGS_NGS_BLOCK": 0.052260, "JACOBI": 426.438171, "TGS_NGS": 0.014633,
+                     "TGS_STICKY": 0.026233, "XPBD": 0.056199},
+    ("b", "bucketed"): {"TGS_SOFT": 0.026405, "PGS_NGS_BLOCK": 0.052260, "XPBD": 0.056199},
     ("a", "dense"): {"TGS_SOFT": 0.004900, "SOFT_STEP": 0.002153, "PGS_SOFT": 0.007671, "PGS": 0.007452,
-                     "PGS_NGS": 0.010953, "PGS_NGS_BLOCK": 0.010953, "JACOBI": 0.007671, "TGS_NGS": 0.004349},
-    ("a", "bucketed"): {"TGS_SOFT": 0.004920, "PGS_NGS_BLOCK": 0.010994},
+                     "PGS_NGS": 0.010953, "PGS_NGS_BLOCK": 0.010953, "JACOBI": 0.007671, "TGS_NGS": 0.004349,
+                     "TGS_STICKY": 0.011419, "XPBD": 0.008430},
+    ("a", "bucketed"): {"TGS_SOFT": 0.004920, "PGS_NGS_BLOCK": 0.010994, "XPBD": 0.010611},
 }
 XLA_BOUNDS = {k: {solver: 2 * v for solver, v in d.items()} for k, d in JAX_XLA.items()}
+# Phase 10, the secondary paths on (b) under PGS_NGS_Block. The sweep and
+# prune takes a window of 48 successors (a box of the base-20 pyramid
+# overlaps some 30 others on the sweep axis: the default 16 overflows) and
+# as many shape slots as shapes: the JAX package's window test reads the
+# low bound of a dead slot, 0, as a successor's and flags an overflow on
+# every scene with dead slots (mirrored by the port). Bounds: twice the
+# JAX package's largest box displacement on the CPU after WARMUP + STEPS
+# steps (tools/jax_world_bounds.py pyramid 23 PGS_NGS_BLOCK --xla --sap |
+# --mis).
+SAP_KW = dict(broadphase="sap", sap_window=48)
+SECONDARY = {"sap": SAP_KW, "mis": dict(incremental_coloring=False)}
+JAX_SECONDARY = {"sap": 0.052260, "mis": 0.050111}
+SECONDARY_BOUNDS = {k: 2 * v for k, v in JAX_SECONDARY.items()}
 # Largest box displacement allowed after WARMUP + STEPS steps. The JAX
 # package on the CPU moves the boxes of a base-20 pyramid by at most 0.0264
 # after 23 steps at this configuration (tools/jax_pyramid_drift.py 20 23).
@@ -150,6 +175,8 @@ MAX_DRIFT = 0.5
 CATALOG_WORLDS = 4
 JITTER = 0.05
 CATALOG_CHECK = 3
+# the timed steps of the XLA-only sweep, after its CATALOG_CHECK steps
+XLA_ONLY_STEPS = 10
 CATALOG_RUN = {
     ("Contact", "Vertical Stack"): 240, ("Contact", "Overlap Recovery"): 120,
     ("Contact", "Warm Start Energy"): 125, ("Joints", "Ragdoll Stress"): 60,
@@ -209,6 +236,8 @@ def pyramid_b(dev, solver, **kw):
     from solver2d_tpu_torch import SolverType, pyramid_world
 
     world, _ = pyramid_world(SolverType[solver], BASE_B)
+    if kw.get("broadphase") == "sap":
+        kw = dict(kw, max_shapes=len(world.shapes))  # no dead slots (see SAP_KW)
     return world.freeze(device=dev, lane_solve=False, max_contacts=896, max_colors=10, gjk_iters=10, **kw)
 
 
@@ -658,7 +687,7 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
     first CATALOG_CHECK steps on the card and, if `compare`, through the
     twins on the CPU, compared (the Joint Grid's world 0 only); then the
     card alone to the scene's run length (a solver only the XLA route runs:
-    CATALOG_CHECK + STEPS), timed after those steps; launches, finiteness
+    CATALOG_CHECK + XLA_ONLY_STEPS), timed after those steps; launches, finiteness
     and the scene's bounds. Returns a dict of its figures."""
     import torch
 
@@ -672,7 +701,7 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
         cpu = cpu.map(lambda x: x[:1])
     fused = bool(cfg.use_fused_solver)
     step = batched_step(cfg)
-    n = CATALOG_RUN.get(key, CATALOG_CHECK + STEPS) if solver in FUSED else CATALOG_CHECK + STEPS
+    n = CATALOG_RUN.get(key, CATALOG_CHECK + STEPS) if solver in FUSED else CATALOG_CHECK + XLA_ONLY_STEPS
     cpu0 = cpu.map(lambda x: x.clone())
     if compare:
         for i in range(CATALOG_CHECK):
@@ -746,18 +775,19 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
     return out
 
 
-def run_xla_path(path, solver, layout, dev, card, counters):
-    """Phase 9 for one path, solver and layout: the first 3 steps of
-    XLA_CHECK_WORLDS jittered worlds on the card and on the CPU, compared;
-    then WARMUP + STEPS steps of the path's worlds on the card, gated.
-    Returns a dict of its figures."""
+def run_xla_path(path, solver, layout, dev, card, counters, secondary=None):
+    """Phase 9 for one path, solver and layout (phase 10 for one of the
+    SECONDARY settings of path (b)): the first 3 steps of XLA_CHECK_WORLDS
+    jittered worlds on the card and on the CPU, compared; then WARMUP +
+    STEPS steps of the path's worlds on the card, gated. Returns a dict of
+    its figures."""
     import torch
 
     from solver2d_tpu_torch import batched_step, replicate
     from solver2d_tpu_torch.solvers import graphs
     from solver2d_tpu_torch.utils.metrics import joint_error
 
-    kw = dict(use_fused_solver=False)
+    kw = dict(use_fused_solver=False, **SECONDARY.get(secondary, {}))
     if layout == "bucketed":
         kw.update(contact_bucket_cap=-1, joint_bucket_cap=-1)
     state, cfg = (pyramid_b if path == "b" else bridge_a)("cpu", solver, **kw)
@@ -771,37 +801,51 @@ def run_xla_path(path, solver, layout, dev, card, counters):
     del gpu
     batch = replicate(state.to(dev), W)
     init_pos = batch.bodies.position.clone()
-    label = (f"[9] XLA route {solver} {layout}, path ({path}): {W} worlds x "
+    tag = "10" if secondary else "9"
+    what = f"{solver} {layout}" + (f" {secondary}" if secondary else "")
+    label = (f"[{tag}] XLA route {what}, path ({path}): {W} worlds x "
              + (f"base-{BASE_B} pyramid" if path == "b" else "Bridge") + f" (buckets {cfg.contact_bucket_cap} contacts, "
-             f"{cfg.joint_bucket_cap} joints a color)")
+             f"{cfg.joint_bucket_cap} joints a color; broadphase {cfg.broadphase}, incremental coloring "
+             f"{cfg.incremental_coloring})")
     batch, ms, launches = run_path(label, lambda b: step(b, DT), batch, W, card, counters)
-    b, d = batch.bodies, batch.diag
+    b, c, d = batch.bodies, batch.contacts, batch.diag
     if path == "b":
         dyn = (b.type[0] == 2) & b.alive[0]
         metric, value = "largest box displacement", float((b.position - init_pos)[:, dyn].norm(dim=-1).max())
     else:
         metric, value = "joint_error max", float(joint_error(batch).max())
-    bound = XLA_BOUNDS[(path, layout)][solver]
-    out = dict(path=path, solver=solver, layout=layout, ms_per_step=ms, world_steps_per_s=W / ms * 1e3, err=err,
-               value=value, bound=bound, k1_launches=launches[0], k2_launches=launches[1],
-               color_overflow=int(d.color_overflow.max()), pair_overflow=bool(d.pair_overflow.any()),
-               contacts=int(d.contact_count[0]))
-    print(f"[9] {solver} {layout} ({path}): 3 steps of {XLA_CHECK_WORLDS} worlds card vs CPU: position err "
+    bound = SECONDARY_BOUNDS[secondary] if secondary else XLA_BOUNDS[(path, layout)][solver]
+    out = dict(path=path, solver=solver, layout=layout, secondary=secondary, ms_per_step=ms,
+               world_steps_per_s=W / ms * 1e3, err=err, value=value, bound=bound, k1_launches=launches[0],
+               k2_launches=launches[1], color_overflow=int(d.color_overflow.max()),
+               pair_overflow=bool(d.pair_overflow.any()), contacts=int(d.contact_count[0]))
+    persisted = ""
+    if solver == "TGS_STICKY":
+        # the share of live contacts whose friction anchors held this step
+        touching = c.alive & (c.point_count > 0)
+        out["persisted_share"] = float((c.friction_persisted & touching).sum()) / max(int(touching.sum()), 1)
+        persisted = f", friction anchors persisted on {out['persisted_share']:.1%} of the live contacts"
+    print(f"[{tag}] {what} ({path}): 3 steps of {XLA_CHECK_WORLDS} worlds card vs CPU: position err "
           f"{err:.3e}, colors equal {colors}, diagnostics equal {diag}; after {WARMUP + STEPS} steps: {metric} "
           f"{value:.6f} (bound {bound:.6f}), contacts {out['contacts']}, color overflow max {out['color_overflow']}, "
-          f"pair overflow any {out['pair_overflow']}; K1 {launches[0]}, K2 {launches[1]} launches", flush=True)
+          f"pair overflow any {out['pair_overflow']}{persisted}; K1 {launches[0]}, K2 {launches[1]} launches",
+          flush=True)
     graphs.clear()
     if not (close and colors and diag):
-        fail(f"XLA route {solver} {layout} ({path}): the card disagrees with the CPU")
+        fail(f"XLA route {what} ({path}): the card disagrees with the CPU")
     if not finite(b):
-        fail(f"XLA route {solver} {layout} ({path}): non-finite body state")
+        fail(f"XLA route {what} ({path}): non-finite body state")
     if out["color_overflow"] != 0:
-        fail(f"XLA route {solver} {layout} ({path}): color overflow")
+        fail(f"XLA route {what} ({path}): color overflow")
+    if secondary == "sap" and out["pair_overflow"]:
+        fail(f"XLA route {what} ({path}): pair overflow")
     if not value < bound:
-        fail(f"XLA route {solver} {layout} ({path}): {metric} {value} >= {bound}")
+        fail(f"XLA route {what} ({path}): {metric} {value} >= {bound}")
     if launches != [0, WARMUP + STEPS]:
-        fail(f"XLA route {solver} {layout} ({path}): K1 launched {launches[0]}, K2 {launches[1]} times in "
+        fail(f"XLA route {what} ({path}): K1 launched {launches[0]}, K2 {launches[1]} times in "
              f"{WARMUP + STEPS} steps")
+    if solver == "TGS_STICKY" and path == "b" and not out["persisted_share"] > 0:
+        fail(f"XLA route {what} ({path}): no friction anchor persisted")
     del batch, init_pos
     torch.cuda.empty_cache()
     return out
@@ -1134,6 +1178,13 @@ def main():
     print("[9] XLA route, every check passed; ms/step " + "; ".join(
         f"({r['path']}) {r['solver']} {r['layout']} {r['ms_per_step']:.2f}" for r in xla_runs) + f" on {card}",
         flush=True)
+
+    # ---- 10. the secondary paths on (b)
+    phase("10")
+    secondary = [run_xla_path("b", "PGS_NGS_BLOCK", "dense", dev, card, [fused_cuda.fused_solve, narrow_cuda.collide],
+                              name) for name in SECONDARY]
+    print("[10] secondary paths, every check passed; ms/step " + "; ".join(
+        f"{r['secondary']} {r['ms_per_step']:.2f}" for r in secondary) + f" on {card}", flush=True)
     phase("end")
 
     k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()])

@@ -2,17 +2,18 @@
 
 An own copy of the constants and enums of the JAX package's `config.py`
 (reference: include/solver2d/constants.h:6-22). `SimConfig` keeps only the
-fields the port's steps read. Both run the grid broadphase and the
-lane-major narrowphase (K2, whatever `narrowphase` names); `lane_solve`
-picks the step:
+fields the port's steps read. Both run the grid or the sweep-and-prune
+broadphase (`broadphase`) and the lane-major narrowphase (K2, whatever
+`narrowphase` names); `lane_solve` picks the step:
 
 - True: the lane-batched step (`step.step_batch`): shared world-0 structure,
   bucketed contact solve, no joints;
 - False: the per-world step (`step.step`, `parallel.batched_step`): each
   world's own pairs and colors, then one of two solve routes
   (`use_fused_solver`): the fused soft solve (kernel K1) of TGS_Soft,
-  SoftStep or PGS_Soft, or the XLA solvers of the JAX package
-  (`solvers/loops.py:SOLVERS`, plain PyTorch), dense or color-bucketed.
+  SoftStep or PGS_Soft, or the XLA solvers of the JAX package, all ten
+  (`solvers/loops.py:SOLVERS`, plain PyTorch), dense or color-bucketed,
+  with incremental or per-step MIS colors (`incremental_coloring`).
 """
 
 from __future__ import annotations
@@ -69,12 +70,8 @@ BUCKETABLE_SOLVERS = frozenset(
 LANE_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT})
 # Solvers of the per-world step's fused solve (the scripts of K1)
 FUSED_SOLVERS = frozenset({SolverType.PGS_SOFT, SolverType.SOFT_STEP, SolverType.TGS_SOFT})
-# Solvers of the per-world step's XLA route (`solvers/loops.py:SOLVERS`);
-# TGS_Sticky and XPBD are ROADMAP item 6
-XLA_SOLVERS = frozenset(
-    {SolverType.JACOBI, SolverType.PGS, SolverType.PGS_NGS, SolverType.PGS_NGS_BLOCK, SolverType.PGS_SOFT,
-     SolverType.SOFT_STEP, SolverType.TGS_SOFT, SolverType.TGS_NGS}
-)
+# Solvers of the per-world step's XLA route (`solvers/loops.py:SOLVERS`): all ten
+XLA_SOLVERS = frozenset(SolverType)
 
 
 class BodyType(enum.IntEnum):
@@ -109,6 +106,10 @@ class SimConfig:
     max_contacts: int = 512
     max_joints: int = 16
 
+    # the pair finder: "grid" (hashed uniform grid) or "sap" (sweep and
+    # prune with a window of `sap_window` successors); both flag overflow
+    broadphase: str = "grid"
+    sap_window: int = 16
     grid_cell: float = 1.5       # broadphase cell size
     cell_capacity: int = 8       # max small shapes per cell
     max_big_shapes: int = 16     # shapes larger than a cell
@@ -124,15 +125,18 @@ class SimConfig:
     # None picks K1 where it can run (`use_fused`). `World.freeze` resolves it.
     use_fused_solver: bool | None = None
 
-    max_colors: int = 16         # colors of the contact graph (<= 30)
-    joint_max_colors: int = 8    # colors of the joint graph (<= 30)
+    max_colors: int = 16         # colors of the contact graph
+    joint_max_colors: int = 8    # colors of the joint graph
     contact_bucket_cap: int = 0  # per-color contact bucket capacity (> 0: bucketed)
     joint_bucket_cap: int = 0    # per-color joint bucket capacity (XLA route)
     # statically skip every contact (joint) solve phase; skipping the
     # contacts also skips the narrowphase
     solve_contacts: bool = True
     solve_joints: bool = True
-    incremental_coloring: bool = True  # False (per-step MIS coloring) is ROADMAP item 7
+    # True: colors persist across steps and new constraints take first-fit
+    # rounds (needs <= 30 colors, an int32 bitmask; `World.freeze` falls
+    # back above); False: a Jones-Plassmann MIS coloring every step
+    incremental_coloring: bool = True
     color_rounds: int = 8        # first-fit rounds for new constraints per step
 
     lane_solve: bool = True      # the lane-batched step; False: the per-world step

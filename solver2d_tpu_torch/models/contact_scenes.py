@@ -14,6 +14,7 @@ import torch
 from ..config import PI, BodyType, SolverType
 from ..ops import geometry
 from ..ops.hull import compute_hull
+from ..ops.math2d import sqrt
 from ..world import World
 from . import Scene, register_scene
 
@@ -226,7 +227,7 @@ def rush(solver: SolverType, count: int = 400) -> Scene:
         """Every live dynamic body of every world of the [W, ...] batch is
         pulled toward the origin with a force of 1000."""
         p = state.bodies.position
-        dist = torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1])
+        dist = sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1])
         dyn = (state.bodies.type == 2) & state.bodies.alive & (dist >= 0.1)
         # a tensor numerator: `1000.0 / x` would multiply by x's reciprocal
         scale = torch.where(dist >= 0.1, dist.new_tensor(1000.0) / torch.clamp(dist, min=0.1), 0.0)

@@ -1,12 +1,13 @@
-"""Grid broadphase and persistent contact matching on tensors.
+"""Broadphase and persistent contact matching on tensors.
 
 Port of the JAX package's `ops/broadphase.py`: fat-AABB hysteresis
-(reference: src/world.c:286-297), the hashed uniform grid pair finder with
-the pair rules of s2PairQueryCallback (src/broad_phase.c:166-258), for one
-world or per world over a batch, and the match of the new pair table against
-the old one, which carries manifolds, impulses and GJK caches
-(src/contact.c:296-359): per world (`match_contacts`) or on the lane step's
-shared world-0 layout (`match_contacts_lane`).
+(reference: src/world.c:286-297), the two pair finders with the pair rules
+of s2PairQueryCallback (src/broad_phase.c:166-258), each for one world or
+per world over a batch: the hashed uniform grid (`find_pairs_grid`) and the
+sweep and prune (`find_pairs`); and the match of the new pair table against
+the old one, which carries manifolds, impulses, GJK caches and TGS_Sticky's
+friction anchors (src/contact.c:296-359): per world (`match_contacts`) or
+on the lane step's shared world-0 layout (`match_contacts_lane`).
 
 Integer fields stay int32 tensors throughout: no field rides a float pack.
 Sorts whose keys can tie are stable, as `jnp.argsort` is.
@@ -19,7 +20,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import AABB_MARGIN, INT32_MAX, SimConfig
-from ..state import Contacts, Shapes
+from ..state import Contacts, Shapes, sticky_width
+from .math2d import sqrt
 
 I32 = torch.int32
 
@@ -217,12 +219,90 @@ def find_pairs_grid(shapes: Shapes, body_type, jointed_keys, config: SimConfig) 
     return PairResult(sa, sb, top_key, filled, count, overflow)
 
 
+def find_pairs(shapes: Shapes, body_type, jointed_keys, config: SimConfig) -> PairResult:
+    """Sweep and prune over fat AABBs, per world: shapes sorted by their
+    low bound on the axis of the larger variance of AABB centers (stably,
+    as `jnp.argsort`), each tested against its `sap_window` successors; the
+    window overflows when the next successor still overlaps on that axis.
+    Takes one world or a batch, as `find_pairs_grid`."""
+    if shapes.fat_aabb.dim() == 2:
+        one = shapes.map(lambda x: x[None])
+        out = find_pairs(one, body_type[None], jointed_keys[None], config)
+        return PairResult(*(x[0] for x in out))
+    W = shapes.fat_aabb.shape[0]
+    S = config.max_shapes
+    K = config.sap_window
+    dev = shapes.fat_aabb.device
+    fat = shapes.fat_aabb
+    alive = shapes.alive
+    worlds = torch.arange(W, device=dev)[:, None, None]
+
+    cx = 0.5 * (fat[..., 0] + fat[..., 2])
+    cy = 0.5 * (fat[..., 1] + fat[..., 3])
+    n_alive = torch.clamp(alive.sum(dim=1, keepdim=True), min=1).to(torch.float32)
+    mx = torch.where(alive, cx, 0.0).sum(dim=1, keepdim=True) / n_alive
+    my = torch.where(alive, cy, 0.0).sum(dim=1, keepdim=True) / n_alive
+    var_x = torch.where(alive, (cx - mx) ** 2, 0.0).sum(dim=1, keepdim=True)
+    var_y = torch.where(alive, (cy - my) ** 2, 0.0).sum(dim=1, keepdim=True)
+    on_y = var_y > var_x                                                # [W,1]
+
+    lo = torch.where(on_y, fat[..., 1], fat[..., 0])
+    hi = torch.where(on_y, fat[..., 3], fat[..., 2])
+    sort_key = torch.where(alive, lo, torch.inf)
+    order = torch.sort(sort_key, dim=1, stable=True).indices             # [W,S]
+    lo_s = torch.gather(lo, 1, order)
+    hi_s = torch.gather(hi, 1, order)
+
+    # candidates: the shape of rank r and those of ranks r+1 .. r+K
+    ranks = torch.arange(S, device=dev)
+    partner_rank = ranks[:, None] + 1 + torch.arange(K, device=dev)    # [S,K]
+    in_range = partner_rank < S
+    partner = torch.clamp(partner_rank, max=S - 1).flatten()
+    a_idx = order[:, :, None]                                           # [W,S,1]
+    b_idx = order[:, partner].reshape(W, S, K)                          # [W,S,K]
+    valid = in_range & (lo[worlds, b_idx] <= hi_s[..., None])
+
+    # window overflow: the (K+1)-th successor still overlaps on the sweep
+    # axis. The alive test reads `sort_key` by shape index against the
+    # rank-ordered bounds, as the JAX package does.
+    last_rank = ranks + 1 + K
+    last_lo = lo_s[:, torch.clamp(last_rank, max=S - 1)]
+    window_overflow = ((last_rank < S) & (last_lo <= hi_s) & (sort_key != torch.inf)).any(dim=1)
+
+    B = body_type.shape[1]
+    fields = dict(
+        fat=fat, body=shapes.body, group=shapes.filter_group, mask=shapes.filter_mask,
+        cat=shapes.filter_category, alive=alive,
+        dyn=torch.gather(body_type, 1, wrap_index(shapes.body, B).long()) == 2,
+    )
+    rows_a = {k: v[worlds, a_idx] for k, v in fields.items()}
+    rows_b = {k: v[worlds, b_idx] for k, v in fields.items()}
+    valid &= _pair_rules(rows_a, rows_b, jointed_keys.contiguous(), config.max_bodies)
+
+    a32, b32 = a_idx.to(I32), b_idx.to(I32)
+    pair_key = torch.where(valid, torch.minimum(a32, b32) * S + torch.maximum(a32, b32), INT32_MAX)
+    # each unordered pair appears once in the window scheme: no duplicates
+    C = config.max_contacts
+    top_key, count = _compact_keys(pair_key.reshape(W, -1), C)
+    filled = top_key != INT32_MAX
+    sa = torch.where(filled, top_key // S, 0).to(I32)
+    sb = torch.where(filled, top_key % S, 0).to(I32)
+    return PairResult(sa, sb, top_key, filled, count, window_overflow | (count > C))
+
+
+def find_pairs_by(shapes: Shapes, body_type, jointed_keys, config: SimConfig) -> PairResult:
+    """The pair finder `config.broadphase` names: "grid" or "sap"."""
+    if config.broadphase == "grid":
+        return find_pairs_grid(shapes, body_type, jointed_keys, config)
+    return find_pairs(shapes, body_type, jointed_keys, config)
+
+
 def match_contacts(old: Contacts, pairs: PairResult, shapes: Shapes) -> Contacts:
     """Per-world persistent matching of a [W, C] batch (reference:
     src/contact.c:156-229 creation, :296-359 persistence): each world's new
     pair table searches its own old table; a pair that existed keeps its
-    manifold, impulses, GJK cache and color, a new one starts from zero
-    (color -1)."""
+    manifold, impulses, GJK cache, color and (TGS_Sticky's table only) its
+    friction anchors, a new one starts from zero (color -1)."""
     W, Cn = old.key.shape
     new_key = pairs.key
     pos = torch.clamp(torch.searchsorted(old.key, new_key, side="left"), max=Cn - 1)
@@ -234,8 +314,13 @@ def match_contacts(old: Contacts, pairs: PairResult, shapes: Shapes) -> Contacts
         f = found.reshape(found.shape + (1,) * (v.dim() - 2))
         return torch.where(f, v, fill)
 
+    sticky = sticky_width(old)
+
+    def carry_sticky(x, fill):
+        return carry(x, fill) if sticky else x
+
     sa, sb = pairs.shape_a, pairs.shape_b
-    friction = torch.sqrt(shapes.friction[worlds, sa] * shapes.friction[worlds, sb])            # contact.c:42-45
+    friction = sqrt(shapes.friction[worlds, sa] * shapes.friction[worlds, sb])            # contact.c:42-45
     restitution = torch.maximum(shapes.restitution[worlds, sa], shapes.restitution[worlds, sb])  # :47-52
     return Contacts(
         key=new_key, shape_a=sa, shape_b=sb,
@@ -250,6 +335,11 @@ def match_contacts(old: Contacts, pairs: PairResult, shapes: Shapes) -> Contacts
         point_id=carry(old.point_id, 0),
         persisted=carry(old.persisted, False),
         point_count=carry(old.point_count, 0),
+        friction_normal_a=carry_sticky(old.friction_normal_a, 0.0),
+        friction_normal_b=carry_sticky(old.friction_normal_b, 0.0),
+        friction_anchor_a=carry_sticky(old.friction_anchor_a, 0.0),
+        friction_anchor_b=carry_sticky(old.friction_anchor_b, 0.0),
+        friction_persisted=carry_sticky(old.friction_persisted, False),
         cache_count=carry(old.cache_count, 0),
         cache_index_a=carry(old.cache_index_a, 0),
         cache_index_b=carry(old.cache_index_b, 0),
@@ -262,7 +352,11 @@ def match_contacts_lane(old: Contacts, pairs0: PairResult, shapes0: Shapes) -> C
     """Lane-batched persistent matching for a lockstep batch [W, C]: the
     slot layout, searched once on world 0's keys, is shared by every world;
     each world's carried values follow it. Slots without a live old pair
-    start from zero (color -1)."""
+    start from zero (color -1). The lane step's solvers keep no sticky
+    friction anchors: a table with them is refused, as in the JAX package."""
+    assert old.friction_persisted.shape[1] == 0, (
+        "match_contacts_lane: sticky anchors not supported (lane solvers are the soft family)"
+    )
     W, Cn = old.key.shape
     new_key = pairs0.key
     old_key0 = old.key[0]
@@ -275,7 +369,7 @@ def match_contacts_lane(old: Contacts, pairs0: PairResult, shapes0: Shapes) -> C
         return torch.where(f, v, fill)
 
     sa, sb = pairs0.shape_a, pairs0.shape_b
-    friction = torch.sqrt(shapes0.friction[sa] * shapes0.friction[sb])        # contact.c:42-45
+    friction = sqrt(shapes0.friction[sa] * shapes0.friction[sb])        # contact.c:42-45
     restitution = torch.maximum(shapes0.restitution[sa], shapes0.restitution[sb])  # :47-52
     color0 = torch.where(found, old.color[0][pos], -1)
 
@@ -295,6 +389,11 @@ def match_contacts_lane(old: Contacts, pairs0: PairResult, shapes0: Shapes) -> C
         point_id=carry(old.point_id, 0),
         persisted=carry(old.persisted, False),
         point_count=carry(old.point_count, 0),
+        friction_normal_a=old.friction_normal_a,
+        friction_normal_b=old.friction_normal_b,
+        friction_anchor_a=old.friction_anchor_a,
+        friction_anchor_b=old.friction_anchor_b,
+        friction_persisted=old.friction_persisted,
         cache_count=carry(old.cache_count, 0),
         cache_index_a=carry(old.cache_index_a, 0),
         cache_index_b=carry(old.cache_index_b, 0),

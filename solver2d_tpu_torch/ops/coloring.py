@@ -1,12 +1,12 @@
-"""Persistent incremental coloring of the constraint graphs and the color
-buckets of the lane solve.
+"""Coloring of the constraint graphs: the persistent incremental coloring,
+the per-step MIS coloring, and the color buckets.
 
 Port of the JAX package's `ops/coloring.py` (`assign_colors`,
-`build_body_map`, `build_color_buckets`); each also runs per world over a
-batch. Colors fix the Gauss-Seidel order,
-so every integer output here equals the JAX function's. Scatters reduce
-with max or add over int32, whose result does not depend on the order of
-the updates.
+`color_graph`, `build_body_map`, `build_color_buckets`); each also runs
+per world over a batch. Colors fix the Gauss-Seidel order, so every
+integer output here equals the JAX function's. Scatters reduce with max,
+min or add over int32, whose result does not depend on the order of the
+updates.
 """
 
 from __future__ import annotations
@@ -33,6 +33,55 @@ def _scatter_add(target, idx, vals):
 
 def _gather(table, idx):
     return torch.gather(table, -1, idx.long())
+
+
+INT32_MAX = 2**31 - 1
+
+
+def color_graph(body_a, body_b, active, dynamic_mask, num_bodies: int, max_colors: int, inner_rounds: int = 4):
+    """The per-step Jones-Plassmann coloring: for each of the first
+    max_colors - 1 colors, `inner_rounds` rounds in which every eligible
+    constraint whose hashed priority is the least at both its dynamic
+    endpoints joins the color. Active constraints left over take the last
+    color, which may have conflicts. Returns (color i32 [N] in [0,
+    max_colors), overflow i32 count); on a batch of graphs ([W, N],
+    dynamic_mask [W, B]) each world's own.
+
+    Each body's owner is an integer minimum over its constraints, a
+    scatter whatever the order of its updates; the JAX package reduces a
+    dense [B+1, N] incidence matrix instead (a TPU workaround)."""
+    if body_a.dim() == 1:
+        color, overflow = color_graph(body_a[None], body_b[None], active[None], dynamic_mask[None], num_bodies,
+                                      max_colors, inner_rounds)
+        return color[0], overflow[0]
+    W, N = body_a.shape
+    dev = body_a.device
+    pri = _hash_priority(torch.arange(N, dtype=I32, device=dev)).expand(W, N)
+    dyn_a = _gather(dynamic_mask, body_a)
+    dyn_b = _gather(dynamic_mask, body_b)
+    # non-dynamic endpoints point at a sink slot, which no round marks used
+    slot_a = torch.where(dyn_a, body_a, num_bodies)
+    slot_b = torch.where(dyn_b, body_b, num_bodies)
+    slots_ab = torch.cat([slot_a, slot_b], dim=1)
+
+    uncolored = torch.ones((W, N), dtype=torch.bool, device=dev)
+    color = torch.full((W, N), max_colors - 1, dtype=I32, device=dev)
+    for k in range(max_colors - 1):
+        used = torch.zeros((W, num_bodies + 1), dtype=I32, device=dev)
+        selected = torch.zeros((W, N), dtype=torch.bool, device=dev)
+        for _ in range(inner_rounds):
+            elig = uncolored & active & ~selected & (_gather(used, slot_a) == 0) & (_gather(used, slot_b) == 0)
+            cand = torch.where(elig, pri, INT32_MAX)
+            owner = torch.full((W, num_bodies + 1), INT32_MAX, dtype=I32, device=dev).scatter_reduce(
+                1, slots_ab.long(), torch.cat([cand, cand], dim=1), "amin", include_self=True)
+            win = elig & (~dyn_a | (_gather(owner, slot_a) == pri)) & (~dyn_b | (_gather(owner, slot_b) == pri))
+            selected = selected | win
+            used = _scatter_max(used, slots_ab, torch.cat([win, win], dim=1).to(I32))
+            used[:, num_bodies] = 0
+        color = torch.where(selected, k, color)
+        uncolored = uncolored & ~selected
+    color = torch.where(active, color, max_colors - 1).to(I32)
+    return color, (uncolored & active).sum(dim=1).to(I32)
 
 
 def assign_colors(carried, body_a, body_b, active, dynamic_mask, num_bodies: int,

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import LINEAR_SLOP, SPECULATIVE_DISTANCE
+from . import math2d as m
 
 _EPS = 1.1920929e-07
 _BIG = 1e30
@@ -55,7 +56,7 @@ def _const_by_case(case, table):
 
 
 def _normalize2(x, y, eps=1e-12):
-    l = torch.sqrt(x * x + y * y)
+    l = m.sqrt(x * x + y * y)
     inv = torch.where(l > eps, 1.0 / torch.clamp(l, min=eps), 0.0)
     return x * inv, y * inv, l
 
@@ -268,7 +269,7 @@ def gjk_lanes(vax, vay, ca, vbx, vby, cb, cache_count, ia_in, ib_in, max_iters: 
     # count 3: interior, both points are point A (distance.c:297-302)
     pbx = torch.where(count == 3, pax, pbx)
     pby = torch.where(count == 3, pay, pby)
-    distance = torch.sqrt((pbx - pax) ** 2 + (pby - pay) ** 2)
+    distance = m.sqrt((pbx - pax) ** 2 + (pby - pay) ** 2)
     return GJKLanes(pax, pay, pbx, pby, distance, count, tuple(ia), tuple(ib))
 
 

@@ -383,3 +383,243 @@ def block_position_pass(bs, cons: ContactCons, ia, ib, use_block, slot_k):
     out_a = pack_body_state(vA, wA, torch.where(blk, dcA_b, dcA_s), torch.where(blk, qA_b, qA_s))
     out_b = pack_body_state(vB, wB, torch.where(blk, dcB_b, dcB_s), torch.where(blk, qB_b, qB_s))
     return gather_apply(bs, slot_k, ia, out_a, out_b)
+
+
+# ----------------------------------------------------------------- TGS_Sticky
+
+
+def prepare_sticky(position, rot, contacts, cons: ContactCons, ia, ib):
+    """Confirm or reset the sticky friction anchors (reference:
+    src/solve_tgs_sticky.c:19-165): a contact keeps its stored anchors
+    where it persisted and neither the relative rotation of its stored
+    normals nor its normal separation at the anchors invalidates any live
+    point; otherwise the anchors restart at the current contact anchors.
+    `position` and `rot` are the bodies' [W, B, 2]; contacts and cons
+    dense [W, C, ...] with their body indices ia, ib.
+
+    Returns (local friction anchors of A and B [W, C, 2, 2], center of
+    mass relative; the tangent separation [W, C, 1], one a contact as in
+    the JAX package; the tangent masses at the anchors [W, C, 2]; the
+    friction fields to store: normals and anchors of A and B in the body
+    origin frames)."""
+    w = torch.arange(ia.shape[0], device=ia.device)[:, None]
+    qA, qB = rot[w, ia][..., None, :], rot[w, ib][..., None, :]
+    cA, cB = position[w, ia], position[w, ib]
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    normal = cons.normal
+    tangent = m.right_perp(normal)
+
+    # confirmation per point (sticky.c:88-135)
+    normalA = m.rotate(qA, contacts.friction_normal_a)
+    normalB = m.rotate(qB, contacts.friction_normal_b)
+    rot_ok = (normalA * normalB).sum(-1) >= 0.98
+    # the anchors are stored in the body origin frame; the prepared anchors
+    # carry the (-local center) offset already
+    lfa = contacts.friction_anchor_a + (cons.local_anchor_a - contacts.anchor_a)
+    lfb = contacts.friction_anchor_b + (cons.local_anchor_b - contacts.anchor_b)
+    world_offset = (cB - cA)[..., None, :] + (m.rotate(qB, lfb) - m.rotate(qA, lfa))
+    sep_ok = torch.abs((world_offset * normalA).sum(-1)) <= 2.0 * LINEAR_SLOP
+    confirmed = contacts.friction_persisted[..., None] & rot_ok & sep_ok
+    keep = ((confirmed | ~cons.pmask).all(dim=-1) & cons.active)[..., None, None]
+
+    # the reset values (sticky.c:137-161)
+    normal2 = normal[..., None, :].expand(normalA.shape)
+    store = (
+        torch.where(keep, contacts.friction_normal_a, m.inv_rotate(qA, normal2)),
+        torch.where(keep, contacts.friction_normal_b, m.inv_rotate(qB, normal2)),
+        torch.where(keep, contacts.friction_anchor_a, contacts.anchor_a),
+        torch.where(keep, contacts.friction_anchor_b, contacts.anchor_b),
+    )
+    lfa = torch.where(keep, lfa, cons.local_anchor_a)
+    lfb = torch.where(keep, lfb, cons.local_anchor_b)
+
+    # the tangent separation and the tangent masses at the friction anchors
+    tangent2 = tangent[..., None, :]
+    tangent_sep = ((cB - cA)[..., None, :] * tangent2).sum(-1)
+    rtA = m.cross(m.rotate(qA, lfa), tangent2)
+    rtB = m.cross(m.rotate(qB, lfb), tangent2)
+    k_t = mA[..., None] + mB[..., None] + iA[..., None] * rtA**2 + iB[..., None] * rtB**2
+    tm = torch.where(k_t > 0.0, 1.0 / torch.where(k_t > 0.0, k_t, 1.0), 0.0)
+    return lfa, lfb, tangent_sep, tm, store
+
+
+def sticky_velocity_pass(carry, cons: ContactCons, ia, ib, lfa, lfb, tangent_sep, sticky_tm, inv_h, use_bias: bool,
+                         slot_k, upd):
+    """s2SolveContacts_TGS_Sticky (sticky.c:167-310) over a constraint set:
+    the rigid normal solve at the current anchors with a Baumgarte bias,
+    then sticky friction at the friction anchors with a tangent position
+    bias and the friction limit of the average normal impulse; a clamp at
+    a point of a kept contact (`upd`) clears its `friction_persisted`.
+    carry = (bs, n_imp, t_imp, friction_persisted); slot_k and upd as in
+    `gs_contact_pass`."""
+    bs, n_imp, t_imp, persisted = carry
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    normal = cons.normal
+    tangent = m.right_perp(normal)
+    contact_baumgarte, friction_baumgarte = 0.8, 0.5
+
+    total_normal = torch.zeros_like(cons.friction)
+    n_cols = [n_imp[..., 0], n_imp[..., 1]]
+    for j in range(2):
+        ok = cons.pmask[..., j]
+        rA = m.rotate(qA, cons.local_anchor_a[..., j, :])
+        rB = m.rotate(qB, cons.local_anchor_b[..., j, :])
+        s = (((dcB - dcA) + (rB - rA)) * normal).sum(-1) + cons.adjusted_separation[..., j]
+        pen = (torch.clamp(contact_baumgarte * s * inv_h, min=-MAX_BAUMGARTE_VELOCITY) if use_bias
+               else torch.zeros_like(s))
+        bias = torch.where(s > 0.0, s * inv_h, pen)
+        vr = (vB + m.cross_sv(wB, rB)) - (vA + m.cross_sv(wA, rA))
+        vn = (vr * normal).sum(-1)
+        old = n_cols[j]
+        new = torch.where(ok, torch.clamp(old + (-cons.normal_mass[..., j] * (vn + bias)), min=0.0), old)
+        n_cols[j] = new
+        total_normal = total_normal + torch.where(ok, new, 0.0)
+        vA, wA, vB, wB = _apply(mA, iA, mB, iB, new - old, normal, vA, wA, vB, wB, rA, rB)
+
+    # friction at the anchors; the limit is the average total normal
+    # impulse (sticky.c:274-277). The tangent separation is one a contact:
+    # the JAX package's `tangent_sep[:, j]` reads its one column for both
+    t_cols = [t_imp[..., 0], t_imp[..., 1]]
+    max_f = 0.5 * cons.friction * total_normal
+    for j in range(2):
+        ok = cons.pmask[..., j]
+        rAf = m.rotate(qA, lfa[..., j, :])
+        rBf = m.rotate(qB, lfb[..., j, :])
+        s = (((dcB - dcA) + (rBf - rAf)) * tangent).sum(-1) + tangent_sep[..., 0]
+        bias = friction_baumgarte * s * inv_h if use_bias else torch.zeros_like(s)
+        vr = (vB + m.cross_sv(wB, rBf)) - (vA + m.cross_sv(wA, rAf))
+        vt = (vr * tangent).sum(-1)
+        old = t_cols[j]
+        raw = old + -sticky_tm[..., j] * (vt + bias)
+        clamped = (raw < -max_f) | (raw > max_f)
+        new = torch.where(ok, torch.minimum(torch.maximum(raw, -max_f), max_f), old)
+        persisted = persisted & ~(clamped & ok & upd)
+        t_cols[j] = new
+        vA, wA, vB, wB = _apply(mA, iA, mB, iB, new - old, tangent, vA, wA, vB, wB, rAf, rBf)
+
+    bs = gather_apply(bs, slot_k, ia, pack_body_state(vA, wA, dcA, qA), pack_body_state(vB, wB, dcB, qB))
+    updn = upd[..., None]
+    return (bs, torch.where(updn, torch.stack(n_cols, dim=-1), n_imp),
+            torch.where(updn, torch.stack(t_cols, dim=-1), t_imp), persisted)
+
+
+# ----------------------------------------------------------------------- XPBD
+
+
+def _project(mA, iA, mB, iB, lam, direction, dcA, qA, dcB, qB, rA, rB):
+    """Move both bodies' positions by the position impulse lam along
+    `direction`."""
+    P = lam[..., None] * direction
+    dcA = dcA - mA[..., None] * P
+    qA = m.integrate_rot(qA, -iA * m.cross(rA, P))
+    dcB = dcB + mB[..., None] * P
+    qB = m.integrate_rot(qB, iB * m.cross(rB, P))
+    return dcA, qA, dcB, qB
+
+
+def _inv_k(mA, iA, mB, iB, rA, rB, direction, num):
+    """-num / K along `direction`, 0 where K is 0."""
+    kA = mA + iA * m.cross(rA, direction) ** 2
+    kB = mB + iB * m.cross(rB, direction) ** 2
+    denom = kA + kB
+    return denom, torch.where(denom > 0.0, -num / torch.where(denom > 0.0, denom, 1.0), 0.0)
+
+
+def xpbd_position_pass(carry, cons: ContactCons, ia, ib, h, slot_k, upd):
+    """s2SolveContactPositions_XPBD (xpbd.c:88-216) over a constraint set:
+    the non-penetration lambda in position space, then the static friction
+    projection inside the friction cone. The impulses are overwritten, not
+    accumulated. carry = (bs, n_imp, t_imp); slot_k and upd as in
+    `gs_contact_pass` (dense, or a bucketed slice)."""
+    bs, n_imp, t_imp = carry
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    normal = cons.normal
+    tangent = m.cross_vs(normal, 1.0)
+
+    def offset(j):
+        rA = m.rotate(qA, cons.local_anchor_a[..., j, :])
+        rB = m.rotate(qB, cons.local_anchor_b[..., j, :])
+        return rA, rB, (dcB - dcA) + ((rB - cons.r_b0[..., j, :]) - (rA - cons.r_a0[..., j, :]))
+
+    n_cols = [n_imp[..., 0], n_imp[..., 1]]
+    for j in range(2):
+        ok = cons.pmask[..., j]
+        rA, rB, ds = offset(j)
+        C = (ds * normal).sum(-1) + cons.separation[..., j]
+        open_ = C > 0.0
+        C = torch.maximum(-MAX_BAUMGARTE_VELOCITY * h, C)
+        _, lam = _inv_k(mA, iA, mB, iB, rA, rB, normal, C)
+        lam = torch.where(open_ | ~ok, 0.0, lam)
+        n_cols[j] = torch.where(ok, lam, n_cols[j])
+        dcA, qA, dcB, qB = _project(mA, iA, mB, iB, lam, normal, dcA, qA, dcB, qB, rA, rB)
+
+    t_cols = [t_imp[..., 0], t_imp[..., 1]]
+    for j in range(2):
+        ok = cons.pmask[..., j]
+        rA, rB, dp = offset(j)
+        _, lam = _inv_k(mA, iA, mB, iB, rA, rB, tangent, (dp * tangent).sum(-1))
+        max_lam = cons.friction * n_cols[j]
+        # static friction holds only inside the cone (xpbd.c:189-198)
+        lam = torch.where((lam >= -max_lam) & (lam <= max_lam) & ok, lam, 0.0)
+        t_cols[j] = torch.where(ok, lam, t_cols[j])
+        dcA, qA, dcB, qB = _project(mA, iA, mB, iB, lam, tangent, dcA, qA, dcB, qB, rA, rB)
+
+    bs = gather_apply(bs, slot_k, ia, pack_body_state(vA, wA, dcA, qA), pack_body_state(vB, wB, dcB, qB))
+    updn = upd[..., None]
+    return (bs, torch.where(updn, torch.stack(n_cols, dim=-1), n_imp),
+            torch.where(updn, torch.stack(t_cols, dim=-1), t_imp))
+
+
+def xpbd_velocity_pass(carry, cons: ContactCons, ia, ib, inv_h, slot_k, upd):
+    """s2SolveContactVelocities_XPBD (xpbd.c:218-338) over a constraint set:
+    the normal relaxation where a position lambda was applied, then kinetic
+    friction by the paper's eq. 31 with its unit fix. Only the tangent
+    impulses are written. carry = (bs, n_imp, t_imp)."""
+    bs, n_imp, t_imp = carry
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    normal = cons.normal
+    tangent = m.cross_vs(normal, 1.0)
+
+    def anchors_vr(j):
+        rA = m.rotate(qA, cons.local_anchor_a[..., j, :])
+        rB = m.rotate(qB, cons.local_anchor_b[..., j, :])
+        return rA, rB, (vB + m.cross_sv(wB, rB)) - (vA + m.cross_sv(wA, rA))
+
+    for j in range(2):
+        rA, rB, vr = anchors_vr(j)
+        _, lam = _inv_k(mA, iA, mB, iB, rA, rB, normal, (vr * normal).sum(-1))
+        lam = torch.where((n_imp[..., j] != 0.0) & cons.pmask[..., j], lam, 0.0)
+        vA, wA, vB, wB = _apply(mA, iA, mB, iB, lam, normal, vA, wA, vB, wB, rA, rB)
+
+    t_cols = [t_imp[..., 0], t_imp[..., 1]]
+    for j in range(2):
+        rA, rB, vr = anchors_vr(j)
+        vt = (vr * tangent).sum(-1)
+        rtA = m.cross(rA, tangent)
+        rtB = m.cross(rB, tangent)
+        denom = (mA + iA * rtA**2) + (mB + iB * rtB**2)
+        huf = (cons.friction * n_imp[..., j] * inv_h) * denom
+        abs_vt = torch.abs(vt)
+        sign = torch.where(abs_vt > 0, vt / torch.where(abs_vt > 0, abs_vt, 1.0), 0.0)
+        cdot = sign * torch.minimum(huf, abs_vt)
+        lam = torch.where(denom > 0, -cdot / torch.where(denom > 0, denom, 1.0), 0.0)
+        on = (vt != 0.0) & cons.pmask[..., j]
+        lam = torch.where(on, lam, 0.0)
+        t_cols[j] = torch.where(on, lam, t_cols[j])
+        vA, wA, vB, wB = _apply(mA, iA, mB, iB, lam, tangent, vA, wA, vB, wB, rA, rB)
+
+    bs = gather_apply(bs, slot_k, ia, pack_body_state(vA, wA, dcA, qA), pack_body_state(vB, wB, dcB, qB))
+    return bs, n_imp, torch.where(upd[..., None], torch.stack(t_cols, dim=-1), t_imp)

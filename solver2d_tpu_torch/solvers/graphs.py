@@ -111,8 +111,8 @@ def _iter_tensors(args):
 def clear():
     """Drop every graph and what was seen (frees their memory pools), and
     the XLA route's widened hints."""
-    from .loops import _sticky
+    from .loops import _widened
 
     _graphs.clear()
     _seen.clear()
-    _sticky.clear()
+    _widened.clear()

@@ -5,7 +5,8 @@ revolute_joint.c:30-105 rigid, :421-506 soft, mouse_joint.c:31-83), the
 motor and angle limits, the mouse joint's angular damping and the velocity
 solve in its rigid (revolute_joint.c:152-303), soft (:508-657) and
 Baumgarte (:660-790) modes (mouse_joint.c:109-159), the warm start, the NGS
-position solve (:305-419) and the impulse store. Functions broadcast over
+position solve (:305-419), the XPBD projection (:825-888) and the impulse
+store. Functions broadcast over
 leading dims; `prepare_joints` takes a batch of worlds ([W, B] bodies,
 [W, J] joints), the passes the per-world layout of `common.py`. The kernel
 K1 (csrc/fused_solve.cu) repeats the soft `solve_joint_core` operation for
@@ -220,11 +221,14 @@ def _mouse_angular_damping(cons: JointCons, imp: JointImp, wB, h):
 
 
 def solve_joint_core(cons: JointCons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp: JointImp,
-                     h, inv_h, use_bias: bool, solve_mouse: bool = True, mode: str = "soft"):
+                     h, inv_h, use_bias: bool, solve_mouse: bool = True, mode: str = "soft",
+                     only_mouse: bool = False):
     """The velocity solve of every joint, elementwise, in `mode` "soft",
-    "rigid" or "baumgarte" (the mouse joint always soft). Returns (vA, wA,
-    vB, wB, new_impulse, imp2, scope): velocities outside `scope` are the
-    inputs; the caller keeps the impulses of the joints it applies."""
+    "rigid" or "baumgarte" (the mouse joint always soft). `solve_mouse`
+    False leaves the mouse joints out of `scope`, `only_mouse` the others.
+    Returns (vA, wA, vB, wB, new_impulse, imp2, scope): velocities outside
+    `scope` are the inputs; the caller keeps the impulses of the joints it
+    applies."""
     mA, iA = cons.inv_mass_a, cons.inv_i_a
     mB, iB = cons.inv_mass_b, cons.inv_i_b
     vA0, wA0, vB0, wB0 = vA, wA, vB, wB
@@ -273,8 +277,11 @@ def solve_joint_core(cons: JointCons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp: Joi
     vB = vB + mB[..., None] * impulse
     wB = wB + iB * m.cross(rB, impulse)
 
-    # relax passes leave mouse joints alone (joint.c:390-397)
+    # relax passes leave mouse joints alone (joint.c:390-397); the XPBD loop
+    # solves only the mouse joints in velocity space (joint.c:450-465)
     scope = cons.active if solve_mouse else cons.active & not_mouse
+    if only_mouse:
+        scope = scope & cons.is_mouse
     vA = torch.where(scope[..., None], vA, vA0)
     wA = torch.where(scope, wA, wA0)
     vB = torch.where(scope[..., None], vB, vB0)
@@ -318,7 +325,7 @@ def warm_start_apply(bs, cons: JointCons, ia, ib, imp: JointImp, slot_k):
 
 
 def solve_pass(carry, cons: JointCons, ia, ib, mode: str, h, inv_h, use_bias: bool, slot_k, upd,
-               solve_mouse: bool = True):
+               solve_mouse: bool = True, only_mouse: bool = False):
     """One joint velocity pass over a set: `upd` marks the joints whose
     impulses are kept (the dense path's color-k winners, the bucketed
     path's winners of the slice), to which `scope` is added. carry = (bs,
@@ -328,7 +335,7 @@ def solve_pass(carry, cons: JointCons, ia, ib, mode: str, h, inv_h, use_bias: bo
     vA, wA, dcA, qA = unpack_body_state(rows_a)
     vB, wB, dcB, qB = unpack_body_state(rows_b)
     vA, wA, vB, wB, new_imp, imp2, scope = solve_joint_core(
-        cons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp, h, inv_h, use_bias, solve_mouse, mode
+        cons, vA, wA, vB, wB, qA, qB, dcA, dcB, imp, h, inv_h, use_bias, solve_mouse, mode, only_mouse
     )
     upd = upd & scope
     bs = gather_apply(bs, slot_k, ia, pack_body_state(vA, wA, dcA, qA), pack_body_state(vB, wB, dcB, qB))
@@ -377,6 +384,37 @@ def position_apply(bs, cons: JointCons, ia, ib, slot_k):
     qA2 = m.integrate_rot(qA2, -iA * m.cross(rA, impulse))
     dcB2 = dcB + mB[..., None] * impulse
     qB2 = m.integrate_rot(qB2, iB * m.cross(rB, impulse))
+
+    revn = rev[..., None]
+    out_a = torch.where(revn, pack_body_state(vA, wA, dcA2, qA2), rows_a)
+    out_b = torch.where(revn, pack_body_state(vB, wB, dcB2, qB2), rows_b)
+    return gather_apply(bs, slot_k, ia, out_a, out_b)
+
+
+def xpbd_apply(bs, cons: JointCons, ia, ib, slot_k):
+    """The XPBD scalar-distance projection of a joint set
+    (revolute_joint.c:825-888) on the revolute joints with a body that
+    moves; the mouse joints are solved in velocity space instead
+    (`solve_pass(..., only_mouse=True)`, joint.c:450-465)."""
+    rows_a, rows_b = gather_rows2(bs, ia, ib)
+    vA, wA, dcA, qA = unpack_body_state(rows_a)
+    vB, wB, dcB, qB = unpack_body_state(rows_b)
+    mA, iA = cons.inv_mass_a, cons.inv_i_a
+    mB, iB = cons.inv_mass_b, cons.inv_i_b
+    rev = ~cons.is_mouse & cons.active & ((mA != 0.0) | (mB != 0.0))
+
+    rA = m.rotate(qA, cons.local_anchor_a)
+    rB = m.rotate(qB, cons.local_anchor_b)
+    separation = (dcB - dcA) + (rB - rA) + cons.center_diff0
+    c = m.length(separation)
+    n = m.normalize(separation)
+    denom = (mA + iA * m.cross(rA, n) ** 2) + (mB + iB * m.cross(rB, n) ** 2)
+    lam = torch.where(denom > 0.0, -c / torch.where(denom > 0.0, denom, 1.0), 0.0)
+    P = torch.where(rev, lam, 0.0)[..., None] * n
+    dcA2 = dcA - mA[..., None] * P
+    qA2 = m.integrate_rot(qA, -iA * m.cross(rA, P))
+    dcB2 = dcB + mB[..., None] * P
+    qB2 = m.integrate_rot(qB, iB * m.cross(rB, P))
 
     revn = rev[..., None]
     out_a = torch.where(revn, pack_body_state(vA, wA, dcA2, qA2), rows_a)

@@ -10,8 +10,9 @@ joints, run the solver's whole script in one launch of K1
 for the next step's warm start.
 
 The XLA route (`SOLVERS`): each reference solver's iteration structure as
-a sequence of colored passes in plain PyTorch, for PGS, PGS_NGS,
-PGS_NGS_Block, PGS_Soft, Jacobi, SoftStep, TGS_Soft and TGS_NGS. Body
+a sequence of colored passes in plain PyTorch, for all ten: PGS,
+PGS_NGS, PGS_NGS_Block, PGS_Soft, Jacobi, SoftStep, TGS_Soft, TGS_NGS,
+TGS_Sticky (its contacts always dense) and XPBD. Body
 state rides one packed [W, B, 8] tensor; `Colors` holds each world's
 colors and body maps and, on the bucketed layout, its bucket tables. These
 solvers follow the XLA code, not K1: velocity damping divides, and a
@@ -20,11 +21,13 @@ constraint that lost a body map cell still writes the bodies it won.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..config import CONTACT_HERTZ, JOINT_HERTZ, SimConfig, SolverType
+from ..ops import math2d as m
 from . import contact_kernels as ck
 from . import joints as jk
 from .common import (
@@ -240,12 +243,13 @@ class _Solve:
     n_imp, t_imp, joint impulses), and the colored passes over them."""
 
     def __init__(self, bodies, contacts, joints, colors: Colors, gravity, dt, cfg: SimConfig, hints, *,
-                 hertz=None, joint_warm: bool):
+                 hertz=None, joint_warm: bool, contact_warm: bool | None = None):
         """Prepare the contacts (soft with `hertz` = (contact factor, joint
         factor) of 1/h, else rigid) and joints, in bucket order on the
-        bucketed layout. dt is a 0-dim float32 tensor; `hints` the step's
-        `Hints` (`solve_hints`), so that the solve syncs with the host
-        nowhere and a CUDA graph can hold it."""
+        bucketed layout; the contacts keep their stored impulses with
+        `contact_warm` (default: `cfg.warm_start`). dt is a 0-dim float32
+        tensor; `hints` the step's `Hints` (`solve_hints`), so that the
+        solve syncs with the host nowhere and a CUDA graph can hold it."""
         W = bodies.type.shape[0]
         self.bodies, self.contacts, self.joints, self.colors, self.gravity, self.cfg, self.hints = (
             bodies, contacts, joints, colors, gravity, cfg, hints)
@@ -264,7 +268,7 @@ class _Solve:
         ia, ib = contacts.body_a, contacts.body_b
         cons, n_imp, t_imp = prepare_contacts(
             contacts, bconst[worlds, ia], bconst[worlds, ib], h=self.h, hertz=contact_hertz,
-            warm_start=cfg.warm_start, soft=soft,
+            warm_start=cfg.warm_start if contact_warm is None else contact_warm, soft=soft,
         )
         self.bucket = colors.bucket
         if self.bucket is not None:
@@ -332,13 +336,14 @@ class _Solve:
             bs = ngs_apply(bs, c.cons, c.ia, c.ib, slot)
         self.st = (bs, n, t, jimp)
 
-    def joint_gs(self, mode: str, use_bias: bool, solve_mouse: bool = True):
+    def joint_gs(self, mode: str, use_bias: bool, solve_mouse: bool = True, only_mouse: bool = False):
         if not self.cfg.solve_joints:
             return
         bs, n, t, jimp = self.st
         for sl, j, slot, win in self._joint_sets():
             bs, imp_k = jk.solve_pass(
                 (bs, _cols(jimp, sl)), j.cons, j.ia, j.ib, mode, self.h, self.inv_h, use_bias, slot, win, solve_mouse,
+                only_mouse,
             )
             jimp = jk.JointImp(*(_put(a, sl, b) for a, b in zip(jimp, imp_k)))
         self.st = (bs, n, t, jimp)
@@ -359,10 +364,10 @@ class _Solve:
             bs = jk.position_apply(bs, j.cons, j.ia, j.ib, slot)
         self.st = (bs, n, t, jimp)
 
-    def finish(self):
-        bs, n, t, jimp = self.st
-        v, w, dp, rot = unpack_body_state(bs)
-        bodies = finalize_positions(self.bodies, dp, rot, v, w)
+    def store(self, n, t):
+        """The contacts and joints with these contact impulses and the
+        carried joint impulses stored."""
+        jimp = self.st[3]
         cons = self.c.cons
         if self.bucket is not None:
             contacts = unbucket_impulses(self.contacts, cons, self.bucket, n, t)
@@ -372,7 +377,12 @@ class _Solve:
             joints = jk.store_impulses_bucketed(self.joints, self.j.cons, self.colors.jbucket, jimp)
         else:
             joints = jk.store_impulses(self.joints, self.j.cons, jimp)
-        return bodies, contacts, joints
+        return contacts, joints
+
+    def finish(self):
+        bs, n, t, _ = self.st
+        v, w, dp, rot = unpack_body_state(bs)
+        return (finalize_positions(self.bodies, dp, rot, v, w),) + self.store(n, t)
 
 
 def _put(full, sl, part):
@@ -546,8 +556,112 @@ def solve_tgs_ngs(bodies, contacts, joints, colors: Colors, gravity, dt, cfg: Si
     return s.finish()
 
 
-# the XLA route's solvers (config.XLA_SOLVERS); TGS_Sticky and XPBD are
-# ROADMAP item 6
+def solve_tgs_sticky(bodies, contacts, joints, colors: Colors, gravity, dt, cfg: SimConfig, hints: Hints):
+    """reference: src/solve_tgs_sticky.c:313-417. Rigid contacts without a
+    warm start, persistent friction anchors (`ck.prepare_sticky`),
+    Baumgarte joints; positions are finalized before the relax passes. The
+    contacts are dense whatever the bucket cap (their anchors are
+    prepared in slot order); the joints take their buckets."""
+    s = _Solve(bodies, contacts, joints, colors, gravity, dt, cfg, hints, joint_warm=False, contact_warm=False)
+    c = s.c
+    lfa, lfb, tsep, stm, fric_store = ck.prepare_sticky(bodies.position, bodies.rot, contacts, c.cons, c.ia, c.ib)
+    # every contact starts a step persisted; a friction clamp clears it
+    persisted = torch.ones_like(c.cons.active)
+
+    def sticky_gs(use_bias):
+        nonlocal persisted
+        if not cfg.solve_contacts:
+            return
+        bs, n, t, jimp = s.st
+        for _, cs, slot, win in s._contact_sets():
+            bs, n, t, persisted = ck.sticky_velocity_pass(
+                (bs, n, t, persisted), cs.cons, cs.ia, cs.ib, lfa, lfb, tsep, stm, s.inv_h, use_bias, slot,
+                cs.cons.active & win,
+            )
+        s.st = (bs, n, t, jimp)
+
+    for _ in range(cfg.iterations):
+        s.integrate_velocities()
+        s.joint_gs("baumgarte", True)
+        sticky_gs(True)
+        s.integrate_positions()
+
+    # finalize the positions, then relax from zeroed deltas (sticky.c:389-410)
+    bs, n, t, jimp = s.st
+    v, w, dp, rot = unpack_body_state(bs)
+    bodies_out = finalize_positions(bodies, dp, rot, v, w)
+    s.st = (pack_body_state(v, w, torch.zeros_like(dp), rot), n, t, jimp)
+    for _ in range(cfg.extra_iterations):
+        s.joint_gs("baumgarte", False)
+        sticky_gs(False)
+
+    bs, n, t, _ = s.st
+    v, w, _, _ = unpack_body_state(bs)
+    contacts, joints = s.store(n, t)
+    fa_n, fb_n, fa_a, fb_a = fric_store
+    contacts = dataclasses.replace(
+        contacts, friction_normal_a=fa_n, friction_normal_b=fb_n, friction_anchor_a=fa_a, friction_anchor_b=fb_a,
+        friction_persisted=persisted & c.cons.active,
+    )
+    return dataclasses.replace(bodies_out, v=v, w=w), contacts, joints
+
+
+def solve_xpbd(bodies, contacts, joints, colors: Colors, gravity, dt, cfg: SimConfig, hints: Hints):
+    """reference: src/solve_xpbd.c:342-530 (Mueller et al. 2020). A substep
+    integrates velocities and positions, projects the joints (the mouse
+    joints by their velocity solve) and the contacts in position space,
+    derives the velocities and relaxes the contact velocities. Only the
+    dynamic bodies are finalized; the impulses are stored times 1/h."""
+    s = _Solve(bodies, contacts, joints, colors, gravity, dt, cfg, hints, joint_warm=False, contact_warm=False)
+    dyn = bodies.alive & (bodies.type == 2)
+
+    def contact_pass(fn, *args):
+        if not cfg.solve_contacts:
+            return
+        bs, n, t, jimp = s.st
+        for sl, c, slot, win in s._contact_sets():
+            bs, n_k, t_k = fn((bs, n[:, sl], t[:, sl]), c.cons, c.ia, c.ib, *args, slot, c.cons.active & win)
+            n, t = _put(n, sl, n_k), _put(t, sl, t_k)
+        s.st = (bs, n, t, jimp)
+
+    for _ in range(cfg.iterations):
+        # integrate velocities and positions at once (xpbd.c:408-449)
+        s.integrate_velocities()
+        _, _, dp0, rot0 = unpack_body_state(s.st[0])
+        s.integrate_positions()
+        # the joints' position projection, then the mouse joints' velocity
+        # solve (joint.c:450-465)
+        if cfg.solve_joints:
+            bs, n, t, jimp = s.st
+            for _, j, slot, _ in s._joint_sets():
+                bs = jk.xpbd_apply(bs, j.cons, j.ia, j.ib, slot)
+            s.st = (bs, n, t, jimp)
+        s.joint_gs("rigid", True, only_mouse=True)
+        contact_pass(ck.xpbd_position_pass, s.h)
+        # derive the velocities (xpbd.c:465-489)
+        bs, n, t, jimp = s.st
+        v, w, dp, rot = unpack_body_state(bs)
+        v = torch.where(dyn[..., None], s.inv_h * (dp - dp0), v)
+        w = torch.where(dyn, m.compute_angular_velocity(rot0, rot, s.inv_h), w)
+        s.st = (pack_body_state(v, w, dp, rot), n, t, jimp)
+        contact_pass(ck.xpbd_velocity_pass, s.inv_h)
+
+    bs, n, t, _ = s.st
+    v, w, dp, rot = unpack_body_state(bs)
+    # finalize only the dynamic bodies (xpbd.c:497-512)
+    dyn2 = dyn[..., None]
+    position = torch.where(dyn2, bodies.position + dp, bodies.position)
+    origin = torch.where(dyn2, position - m.rotate(rot, bodies.local_center), bodies.origin)
+    bodies_out = dataclasses.replace(
+        bodies, position=position, origin=origin, rot=rot, delta_pos=torch.zeros_like(dp),
+        delta_pos0=torch.zeros_like(dp), v=v, w=w, force=torch.zeros_like(bodies.force),
+        torque=torch.zeros_like(bodies.torque),
+    )
+    # the impulses are stored times 1/h, for reporting only (xpbd.c:514-527)
+    return (bodies_out,) + s.store(n * s.inv_h, t * s.inv_h)
+
+
+# the XLA route's solvers (config.XLA_SOLVERS)
 SOLVERS = {
     SolverType.JACOBI: solve_jacobi,
     SolverType.PGS: solve_pgs,
@@ -555,41 +669,43 @@ SOLVERS = {
     SolverType.PGS_NGS_BLOCK: solve_pgs_ngs_block,
     SolverType.PGS_SOFT: solve_pgs_soft_xla,
     SolverType.SOFT_STEP: solve_soft_step_xla,
+    SolverType.TGS_STICKY: solve_tgs_sticky,
     SolverType.TGS_SOFT: solve_tgs_soft_xla,
     SolverType.TGS_NGS: solve_tgs_ngs,
+    SolverType.XPBD: solve_xpbd,
 }
 
 
 # per configuration and batch shape on the card: the union of the live
 # colors and the largest depth seen so far (see `solve_xla`)
-_sticky: dict = {}
+_widened: dict = {}
 
 
-def _sticky_hints(key, hints: Hints) -> Hints:
+def _widen_hints(key, hints: Hints) -> Hints:
     """`hints` widened to every color live in an earlier step of the same
     key, and the depth to the next power of two at or above the largest
     seen. A pass over a color without live constraints, and a sum over
     absent entries, change nothing, so the widened solve equals the narrow
     one bit for bit, and its graph's key changes only when a new color or
     depth appears."""
-    c_live, j_live, depth = _sticky.get(key, ((), (), 1))
+    c_live, j_live, depth = _widened.get(key, ((), (), 1))
     while depth < hints.depth:
         depth *= 2
     widened = Hints(tuple(sorted(set(c_live) | set(hints.c_live))), tuple(sorted(set(j_live) | set(hints.j_live))),
                     depth)
-    _sticky[key] = widened
+    _widened[key] = widened
     return widened
 
 
 def solve_xla(bodies, contacts, joints, colors: Colors, gravity, dt, cfg: SimConfig):
     """cfg.solver on a batch of worlds through the XLA route: the step's
     hints from the host, then the solve, through a CUDA graph on the card
-    (`graphs.run`, with the hints widened by `_sticky_hints` so that its
+    (`graphs.run`, with the hints widened by `_widen_hints` so that its
     graphs are reused). dt is a 0-dim float32 tensor. Returns (bodies,
     contacts, joints)."""
     hints = solve_hints(bodies, contacts, joints, colors, cfg)
     if bodies.type.is_cuda and graphs.ENABLED:
-        hints = _sticky_hints((cfg, tuple(bodies.type.shape), bodies.type.device), hints)
+        hints = _widen_hints((cfg, tuple(bodies.type.shape), bodies.type.device), hints)
     solve = SOLVERS[cfg.solver]
     return graphs.run((cfg, hints), lambda *args: solve(*args, cfg, hints),
                       (bodies, contacts, joints, colors, gravity, dt))

@@ -7,9 +7,12 @@ leading `W` dim on every tensor.
 
 Differences from the JAX layout:
 - filter bits are int32 tensors holding the uint32 bit patterns (torch has
-  no general uint32 arithmetic); `state_from_numpy`/`to_numpy` reinterpret;
-- the TGS_Sticky friction-anchor fields of `Contacts` are absent: they are
-  zero-width for every solver the port runs.
+  no general uint32 arithmetic); `state_from_numpy`/`to_numpy` reinterpret.
+
+As in the JAX package, the TGS_Sticky friction-anchor fields of `Contacts`
+have the contact table's width under TGS_Sticky and width 0 under every
+other solver (`World.freeze` sizes them by solver); code that carries
+them tests their width on the contact axis (`sticky_width`).
 """
 
 from __future__ import annotations
@@ -112,11 +115,24 @@ class Contacts(_Tree):
     point_id: torch.Tensor       # i32 [C,2]
     persisted: torch.Tensor      # bool [C,2]
     point_count: torch.Tensor    # i32 [C]
+    # TGS_Sticky's persistent friction anchors (reference: manifold.h:19-46,
+    # solve_tgs_sticky.c:87-135): [C, ...] under TGS_Sticky, [0, ...] else
+    friction_normal_a: torch.Tensor  # f32 [C,2,2] per-point local normals
+    friction_normal_b: torch.Tensor  # f32 [C,2,2]
+    friction_anchor_a: torch.Tensor  # f32 [C,2,2]
+    friction_anchor_b: torch.Tensor  # f32 [C,2,2]
+    friction_persisted: torch.Tensor  # bool [C]
     cache_count: torch.Tensor    # i32 [C]
     cache_index_a: torch.Tensor  # i32 [C,3]
     cache_index_b: torch.Tensor  # i32 [C,3]
     color: torch.Tensor          # i32 [C] (-1 = unassigned)
     alive: torch.Tensor          # bool [C]
+
+
+def sticky_width(contacts: Contacts) -> bool:
+    """The sticky fields have the contact table's width (TGS_Sticky): read
+    on the contact axis, which follows a batch's worlds axis."""
+    return contacts.friction_persisted.shape[-1] == contacts.key.shape[-1]
 
 
 @dataclasses.dataclass
@@ -178,8 +194,7 @@ def _get(tree, name):
 def from_numpy(cls, tree, device="cuda"):
     """Build a state dataclass `cls` (State, Bodies, Contacts, ...) from a
     tree of numpy arrays with its field names: an object with those
-    attributes or nested dicts. Fields the port does not keep (the
-    zero-width sticky anchors of the JAX contacts) are ignored."""
+    attributes or nested dicts."""
     out = {}
     for f in dataclasses.fields(cls):
         sub = _get(tree, f.name)

@@ -4,7 +4,8 @@ Ports of the JAX package's `step.py` (reference pipeline:
 src/world.c:120-306). Both run on a batch with a leading worlds dim.
 
 `step_batch`, the lane branch of the JAX `step_batch`, for a lockstep batch:
-1. grid broadphase on world 0, then the persistent contact match whose slot
+1. broadphase on world 0 (the grid, or the sweep and prune with
+   `broadphase="sap"`), then the persistent contact match whose slot
    layout every world shares (`ops/broadphase.py`);
 2. the narrowphase of every (world, contact) through K2
    (`ops/narrow_cuda.py`), then warm-start id matching (`_apply_manifolds`);
@@ -17,16 +18,16 @@ per-world `mismatch` adds on top of world 0's shared overflow in
 `color_overflow`, and world 0's gravity and shape geometry serve every world.
 
 `step`, the JAX `step` vmapped over worlds (`parallel.batch`): each world
-has its own pairs (`find_pairs_grid`, `match_contacts`), its narrowphase
-through K2 with the worlds flattened into one lane batch
-(`update_manifolds`; skipped with `solve_contacts=False`), its own
-incremental contact and joint colors and body maps (and, on the bucketed
-layout, its color buckets), then one of two solve routes
-(`config.use_fused`):
+has its own pairs (`find_pairs_grid` or `find_pairs`, `match_contacts`),
+its narrowphase through K2 with the worlds flattened into one lane batch
+(`update_manifolds`; skipped with `solve_contacts=False`), its own contact
+and joint colors (incremental, or a per-step MIS coloring with
+`incremental_coloring=False`) and body maps (and, on the bucketed layout,
+its color buckets), then one of two solve routes (`config.use_fused`):
 - fused: the soft solve of contacts and soft revolute and mouse joints in
   one launch of K1 (`solvers/loops.solve_prepared`), in the script of
   `config.solver`: TGS_Soft, SoftStep or PGS_Soft;
-- XLA: the JAX package's XLA solver of `config.solver`
+- XLA: the JAX package's XLA solver of `config.solver`, any of the ten
   (`solvers/loops.SOLVERS`), colored passes in plain PyTorch, dense or
   color-bucketed (`contact_bucket_cap`, `joint_bucket_cap`), replayed from
   a CUDA graph on the card (`solvers/graphs.py`).
@@ -48,7 +49,7 @@ from .solvers.fused_solve import FusedInputs
 from .solvers.joints import JointCons
 from .solvers.lane_solve import build_lane_structure, lane_solve
 from .solvers.loops import Colors, prepare_fused, solve_prepared, solve_xla
-from .state import Contacts, Diagnostics, Joints, State
+from .state import Contacts, Diagnostics, Joints, State, sticky_width
 
 # the JAX package's narrowphase names, which compute the same math: the
 # port runs K2 for each
@@ -72,7 +73,9 @@ class ManifoldOut(NamedTuple):
 def _apply_manifolds(contacts: Contacts, out: ManifoldOut) -> Contacts:
     """Warm-start id matching and the manifold table update (reference:
     src/contact.c:328-358): a new point whose feature id equals a live old
-    point's takes that point's impulses."""
+    point's takes that point's impulses, and on TGS_Sticky's table its
+    friction anchors; the anchors persist where the point count is kept
+    and every new point matched."""
     alive = contacts.alive
     pts = torch.arange(2, device=alive.device)
     new_count = torch.where(alive, out.point_count, 0)
@@ -87,6 +90,21 @@ def _apply_manifolds(contacts: Contacts, out: ManifoldOut) -> Contacts:
 
     def take(old):
         return torch.where(second, old[..., 1:2], old[..., 0:1])
+
+    sticky = {}
+    if sticky_width(contacts):
+        m2 = matched[..., None]
+
+        def take2(old):  # [..., 2, 2] fields
+            return torch.where(second[..., None], old[..., 1:2, :], old[..., 0:1, :])
+
+        sticky = {
+            k: torch.where(m2, take2(getattr(contacts, k)), getattr(contacts, k))
+            for k in ("friction_normal_a", "friction_normal_b", "friction_anchor_a", "friction_anchor_b")
+        }
+        sticky["friction_persisted"] = (
+            (new_count == contacts.point_count) & (matched | ~new_pmask).all(-1) & alive
+        )
 
     a1, a2 = alive[..., None], alive[..., None, None]
     return dataclasses.replace(
@@ -103,6 +121,7 @@ def _apply_manifolds(contacts: Contacts, out: ManifoldOut) -> Contacts:
         cache_count=torch.where(alive, out.cache_count, contacts.cache_count),
         cache_index_a=torch.where(a1, out.cache_ia, contacts.cache_index_a),
         cache_index_b=torch.where(a1, out.cache_ib, contacts.cache_index_b),
+        **sticky,
     )
 
 
@@ -245,7 +264,7 @@ def step_batch(batch: State, dt: float, config: SimConfig) -> State:
     sbt0 = torch.where(
         shapes0.alive, bodies0.type[broadphase.wrap_index(shapes0.body, B)], 0
     )
-    pairs0 = broadphase.find_pairs_grid(
+    pairs0 = broadphase.find_pairs_by(
         shapes0, bodies0.type, broadphase.jointed_body_keys(joints0, config), config
     )
     diverged = (batch.shapes.fat_aabb != batch.shapes.fat_aabb[0:1]).reshape(W, S * 4).any(dim=1)
@@ -277,7 +296,7 @@ def _pre_solve(batch: State, config: SimConfig):
     B = bodies.type.shape[1]
     sbt = torch.where(shapes.alive, torch.gather(bodies.type, 1, broadphase.wrap_index(shapes.body, B).long()), 0)
     jointed = broadphase.jointed_body_keys(batch.joints, config)
-    pairs = broadphase.find_pairs_grid(shapes, bodies.type, jointed, config)
+    pairs = broadphase.find_pairs_by(shapes, bodies.type, jointed, config)
     contacts = broadphase.match_contacts(batch.contacts, pairs, shapes)
     if config.solve_contacts:
         contacts = update_manifolds(batch, contacts, config.gjk_iters, config.narrowphase)
@@ -306,12 +325,14 @@ def _buckets(color, active, body_a, body_b, dyn, K, cap, B, write_a_extra=None):
 
 
 def _color(batch: State, contacts: Contacts, config: SimConfig):
-    """Per world: incremental contact and joint colors and their body maps,
-    as the JAX `step` makes them (step.py:310-457): a statically skipped
+    """Per world: contact and joint colors and their body maps, as the JAX
+    `step` makes them (step.py:310-457): incremental colors that the
+    tables carry, or with `incremental_coloring=False` a fresh MIS
+    coloring each step that the tables do not keep; a statically skipped
     kind keeps its carried colors and gets an inert map; on the XLA route
-    a kind with a bucket cap gets its color buckets, whose dropped rows and
-    map losers count as overflow. Returns (contacts, joints, Colors,
-    overflow [W])."""
+    a kind with a bucket cap (incremental colors only) gets its color
+    buckets, whose dropped rows and map losers count as overflow. Returns
+    (contacts, joints, Colors, overflow [W])."""
     bodies, joints = batch.bodies, batch.joints
     W = bodies.type.shape[0]
     B = config.max_bodies
@@ -319,24 +340,34 @@ def _color(batch: State, contacts: Contacts, config: SimConfig):
     dyn = (bodies.type == 2) & bodies.alive
     touching = contacts.alive & (contacts.point_count > 0)
     fused = use_fused(config)
+    incremental = config.incremental_coloring
     bucketed = (config.contact_bucket_cap > 0 and config.solver in BUCKETABLE_SOLVERS and not fused
-                and config.solve_contacts)
-    jbucketed = config.joint_bucket_cap > 0 and not fused and config.solve_joints
+                and config.solve_contacts and incremental)
+    jbucketed = config.joint_bucket_cap > 0 and not fused and config.solve_joints and incremental
     zero = torch.zeros(W, dtype=I32, device=dev)
     bucket = jbucket = None
 
-    ccolor, c_overflow = contacts.color, zero
+    def colors_of(carried, body_a, body_b, active, K, cap):
+        """(color, overflow, active colored constraints, color the table keeps)."""
+        if not incremental:
+            color, overflow = coloring.color_graph(body_a, body_b, active, dyn, B, K)
+            return color, overflow, active, carried
+        color, overflow = coloring.assign_colors(carried, body_a, body_b, active, dyn, B, K,
+                                                 rounds=config.color_rounds, bucket_cap=cap)
+        return color, overflow, active & (color >= 0), color
+
+    ccolor, c_overflow, c_kept = contacts.color, zero, contacts.color
     if config.solve_contacts:
-        ccolor, c_overflow = coloring.assign_colors(
-            contacts.color, contacts.body_a, contacts.body_b, touching, dyn, B, config.max_colors,
-            rounds=config.color_rounds, bucket_cap=config.contact_bucket_cap if bucketed else 0,
+        ccolor, c_overflow, c_active, c_kept = colors_of(
+            contacts.color, contacts.body_a, contacts.body_b, touching, config.max_colors,
+            config.contact_bucket_cap if bucketed else 0,
         )
-        c_active = touching & (ccolor >= 0)
         if bucketed:
             bucket, ccolor, cmap, c_drop = _buckets(
                 ccolor, c_active, contacts.body_a, contacts.body_b, dyn, config.max_colors,
                 config.contact_bucket_cap, B,
             )
+            c_kept = ccolor
         else:
             cmap = make_body_map(contacts.body_a, contacts.body_b, ccolor, c_active, dyn, B, config.max_colors)
             c_drop = (c_active & ~cmap.winner).sum(dim=1)
@@ -344,13 +375,12 @@ def _color(batch: State, contacts: Contacts, config: SimConfig):
     else:
         cmap = _inert_map(W, B, config.max_colors, config.max_contacts, dev)
 
-    jcolor, j_overflow = joints.color, zero
+    jcolor, j_overflow, j_kept = joints.color, zero, joints.color
     if config.solve_joints:
-        jcolor, j_overflow = coloring.assign_colors(
-            joints.color, joints.body_a, joints.body_b, joints.alive, dyn, B, config.joint_max_colors,
-            rounds=config.color_rounds, bucket_cap=config.joint_bucket_cap if jbucketed else 0,
+        jcolor, j_overflow, j_active, j_kept = colors_of(
+            joints.color, joints.body_a, joints.body_b, joints.alive, config.joint_max_colors,
+            config.joint_bucket_cap if jbucketed else 0,
         )
-        j_active = joints.alive & (jcolor >= 0)
         # mouse joints never write body A
         not_mouse = joints.type != 1
         if jbucketed:
@@ -359,6 +389,7 @@ def _color(batch: State, contacts: Contacts, config: SimConfig):
                 config.joint_bucket_cap, B, write_a_extra=not_mouse,
             )
             j_overflow = j_overflow + j_drop
+            j_kept = jcolor
         else:
             jmap = make_body_map(joints.body_a, joints.body_b, jcolor, j_active, dyn, B, config.joint_max_colors,
                                  write_a_extra=not_mouse)
@@ -366,7 +397,7 @@ def _color(batch: State, contacts: Contacts, config: SimConfig):
         jmap = _inert_map(W, B, config.joint_max_colors, config.max_joints, dev)
 
     colors = Colors(ccolor, cmap, jcolor, jmap, bucket, jbucket)
-    return (dataclasses.replace(contacts, color=ccolor), dataclasses.replace(joints, color=jcolor), colors,
+    return (dataclasses.replace(contacts, color=c_kept), dataclasses.replace(joints, color=j_kept), colors,
             c_overflow + j_overflow)
 
 

@@ -12,6 +12,7 @@ Usage:
   python -m solver2d_tpu_torch.testbed "Contact/Pyramid" --solvers TGS_SOFT,PGS_NGS_BLOCK --steps 240
   python -m solver2d_tpu_torch.testbed "Joints/Ragdoll Stress" --solvers all --steps 240
   python -m solver2d_tpu_torch.testbed "Joints/Joint Grid" --solvers PGS_NGS --steps 60 --bucket-cap -1
+  python -m solver2d_tpu_torch.testbed "Contact/Pyramid" --solvers TGS_STICKY,XPBD --broadphase sap --mis
 
 Settings mirror samples/settings.h:16-24: 60 Hz, 4 primary iterations, 2
 secondary, warm starting on. The scene runs on the card; `run_scene(...,
@@ -34,19 +35,11 @@ from .utils.metrics import statistics
 
 
 def parse_solvers(spec: str) -> list[SolverType]:
-    """A comma list of solver names, or "all" (the eight solvers of the
-    per-world step). A solver that is not ported raises."""
+    """A comma list of solver names, or "all" (the ten solvers of the
+    per-world step)."""
     if spec == "all":
         return sorted(XLA_SOLVERS)
-    solvers = [SolverType[s.strip()] for s in spec.split(",")]
-    missing = [s.name for s in solvers if s not in XLA_SOLVERS]
-    if missing:
-        ported = ", ".join(s.name for s in sorted(XLA_SOLVERS))
-        raise ValueError(
-            f"solver(s) {', '.join(missing)} not ported: the port runs {ported} (TGS_STICKY and XPBD are ROADMAP "
-            "item 6)"
-        )
-    return solvers
+    return [SolverType[s.strip()] for s in spec.split(",")]
 
 
 def run_scene(
@@ -62,12 +55,13 @@ def run_scene(
     bucket_cap: int = 0,
     device="cuda",
     verbose: bool = True,
+    **overrides,
 ):
     """Step the scene `steps` frames under each solver (a batch of one
     world each). `bucket_cap` is the contact bucket capacity of the XLA
-    route (-1 auto, 0 dense). Returns {solver: dict(scene, state, cfg,
-    step, ms)}."""
-    parse_solvers(",".join(s.name for s in solvers))
+    route (-1 auto, 0 dense); `overrides` go to `freeze` (for example
+    broadphase="sap", incremental_coloring=False). Returns {solver:
+    dict(scene, state, cfg, step, ms)}."""
     dt = 1.0 / hertz if hertz > 0 else 0.0
     dev = torch.device(device)
     runs = {}
@@ -75,7 +69,7 @@ def run_scene(
         scene = build(category, name, solver)
         state, cfg = scene.freeze(
             device=dev, iterations=iterations, extra_iterations=extra_iterations, warm_start=warm_start,
-            contact_bucket_cap=bucket_cap,
+            contact_bucket_cap=bucket_cap, **overrides,
         )
         runs[solver] = dict(scene=scene, state=replicate(state, 1), cfg=cfg, step=batched_step(cfg), ms=0.0)
 
@@ -117,7 +111,7 @@ def main(argv=None):
     p.add_argument("scene", nargs="?", help="Category/Name, e.g. 'Contact/Pyramid'")
     p.add_argument("--list", action="store_true", help="list the scene catalog")
     p.add_argument("--solvers", default="PGS_NGS_BLOCK",
-                   help="comma list or 'all' (the eight ported solvers; TGS_STICKY and XPBD are not ported)")
+                   help="comma list or 'all' (the ten solvers)")
     p.add_argument("--steps", type=int, default=240)
     p.add_argument("--hertz", type=float, default=60.0)
     p.add_argument("--iters", type=int, default=4)
@@ -127,6 +121,9 @@ def main(argv=None):
                    help="world-steps per frame (reference: samples/sample.cpp:130-137)")
     p.add_argument("--bucket-cap", type=int, default=0,
                    help="color-bucketed solve per-color capacity (-1 auto, 0 dense)")
+    p.add_argument("--broadphase", choices=("grid", "sap"), default="grid",
+                   help="pair finder: hashed grid or sweep and prune")
+    p.add_argument("--mis", action="store_true", help="per-step MIS coloring (incremental_coloring=False)")
     args = p.parse_args(argv)
 
     if args.list or not args.scene:
@@ -139,6 +136,7 @@ def main(argv=None):
         category, name, parse_solvers(args.solvers),
         steps=args.steps, hertz=args.hertz, iterations=args.iters, extra_iterations=args.extra_iters,
         warm_start=not args.no_warm_start, multi_steps=args.multi_steps, bucket_cap=args.bucket_cap,
+        broadphase=args.broadphase, incremental_coloring=not args.mis,
     )
     return 0
 

@@ -10,6 +10,7 @@ the scene-aware default configuration (grid cell, colors, capacities).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -23,7 +24,6 @@ from .config import (
     LANE_SOLVERS,
     MAX_POLYGON_VERTICES,
     SPECULATIVE_DISTANCE,
-    XLA_SOLVERS,
     BodyType,
     SimConfig,
     SolverType,
@@ -346,33 +346,29 @@ class World:
         `lane_solve=False` configures the per-world step; its route is
         resolved here (`use_fused_solver`: K1 for its three soft solvers when
         a world's bodies fit its shared memory, else the XLA solvers) and
-        the returned config names it."""
+        the returned config names it. Above 30 colors the incremental
+        coloring's bitmask no longer fits: the config falls back to the
+        per-step MIS coloring with a warning, as in the JAX package. The
+        contact table carries TGS_Sticky's friction anchors under that
+        solver only."""
         if config is None:
             config = self.default_config(**overrides)
         assert config.max_bodies >= len(self.bodies)
         assert config.max_shapes >= len(self.shapes)
         assert config.max_joints >= len(self.joints)
         assert config.max_shapes * config.max_shapes < (1 << 31), "pair keys must fit int32"
-        assert max(config.max_colors, config.joint_max_colors) <= 30, (
-            "assign_colors packs colors into an int32 bitmask"
-        )
         assert config.solve_joints or not self.joints, (
             "solve_joints=False is for joint-free scenes; this scene's joints would be ignored"
         )
-        if not config.incremental_coloring:
-            raise ValueError("incremental_coloring=False needs coloring.color_graph, not ported (ROADMAP item 7)")
+        if config.broadphase not in ("grid", "sap"):
+            raise ValueError(f"broadphase {config.broadphase!r}: 'grid' or 'sap'")
         if config.lane_solve:
             assert config.solver in LANE_SOLVERS, f"the lane step runs {sorted(s.name for s in LANE_SOLVERS)}"
             assert config.contact_bucket_cap != 0, "the lane step needs the bucketed layout"
             assert not self.joints, "the lane step solves no joints"
+            assert config.incremental_coloring, "the lane step colors incrementally"
             config = config.replace(use_fused_solver=False)
         else:
-            if config.solver not in XLA_SOLVERS:
-                ported = ", ".join(s.name for s in sorted(XLA_SOLVERS))
-                raise ValueError(
-                    f"solver {config.solver.name} is not ported: the per-world step runs {ported} (TGS_STICKY and "
-                    "XPBD are ROADMAP item 6)"
-                )
             fits = k1_fits(config)
             if config.use_fused_solver is None:
                 config = config.replace(use_fused_solver=config.solver in FUSED_SOLVERS and fits)
@@ -393,6 +389,16 @@ class World:
         if config.joint_bucket_cap < 0:
             jcap = -(-2 * config.max_joints // config.joint_max_colors)
             config = config.replace(joint_bucket_cap=(jcap + 7) // 8 * 8)
+        if config.incremental_coloring and max(config.max_colors, config.joint_max_colors) > 30:
+            # assign_colors packs the used colors into an int32 bitmask: fall
+            # back to the per-step MIS coloring, as the JAX package does
+            warnings.warn(
+                f"max_colors={config.max_colors}/joint_max_colors={config.joint_max_colors} "
+                "> 30: incremental coloring needs an i32 bitmask; falling back to "
+                "per-step MIS coloring (incremental_coloring=False)",
+                stacklevel=2,
+            )
+            config = config.replace(incremental_coloring=False)
 
         for i, b in enumerate(self.bodies):
             if b.def_.type == BodyType.DYNAMIC and b.mass == 0.0 and b.shapes:
@@ -457,7 +463,7 @@ class World:
         state = State(
             bodies=Bodies(**t(B)),
             shapes=Shapes(**t(S)),
-            contacts=Contacts(**t(_zeros_contacts(C))),
+            contacts=Contacts(**t(_zeros_contacts(C, sticky=config.solver == SolverType.TGS_STICKY))),
             joints=Joints(**t(J)),
             gravity=torch.tensor(self.gravity, dtype=torch.float32, device=device),
             diag=Diagnostics(**t(dict(
@@ -502,9 +508,12 @@ def _zeros_shapes(n):
     }
 
 
-def _zeros_contacts(n):
+def _zeros_contacts(n, sticky: bool = False):
+    """An empty contact table of n slots; the sticky friction anchors have
+    its width under TGS_Sticky (`sticky`), else width 0."""
     f = lambda *s: np.zeros(s, np.float32)  # noqa: E731
     i = lambda *s: np.zeros(s, np.int32)  # noqa: E731
+    ns = n if sticky else 0
     return {
         "key": np.full((n,), np.iinfo(np.int32).max, np.int32),
         "shape_a": i(n), "shape_b": i(n), "body_a": i(n), "body_b": i(n),
@@ -512,6 +521,9 @@ def _zeros_contacts(n):
         "normal": f(n, 2), "anchor_a": f(n, 2, 2), "anchor_b": f(n, 2, 2),
         "separation": f(n, 2), "normal_impulse": f(n, 2), "tangent_impulse": f(n, 2),
         "point_id": i(n, 2), "persisted": np.zeros((n, 2), bool), "point_count": i(n),
+        "friction_normal_a": f(ns, 2, 2), "friction_normal_b": f(ns, 2, 2),
+        "friction_anchor_a": f(ns, 2, 2), "friction_anchor_b": f(ns, 2, 2),
+        "friction_persisted": np.zeros((ns,), bool),
         "cache_count": i(n), "cache_index_a": i(n, 3), "cache_index_b": i(n, 3),
         "color": np.full((n,), -1, np.int32),
         "alive": np.zeros((n,), bool),

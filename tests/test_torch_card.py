@@ -381,13 +381,15 @@ def test_k2_matches_twin_on_the_catalog(card, scene):
 
 # ------------------------------------------------------------ the XLA route
 
-XLA_SOLVERS = ["JACOBI", "PGS", "PGS_NGS", "PGS_NGS_BLOCK", "PGS_SOFT", "SOFT_STEP", "TGS_SOFT", "TGS_NGS"]
+XLA_SOLVERS = ["JACOBI", "PGS", "PGS_NGS", "PGS_NGS_BLOCK", "PGS_SOFT", "SOFT_STEP", "TGS_SOFT", "TGS_NGS",
+               "TGS_STICKY", "XPBD"]
 
 
-def _xla_world(scene, solver, layout):
+def _xla_world(scene, solver, layout, **kw):
     """A small scene of the per-world step on its XLA route: the base-4
     pyramid, or the 4-plank Bridge with a mouse joint on plank 3 held from
-    plank 1; `layout` "bucketed" sizes contact and joint buckets."""
+    plank 1; `layout` "bucketed" sizes contact and joint buckets; `kw` more
+    freeze settings."""
     from solver2d_tpu_torch import SolverType, bridge, pyramid_world
 
     if scene == "pyramid":
@@ -396,7 +398,8 @@ def _xla_world(scene, solver, layout):
         world = bridge(SolverType[solver], 4)[0]
         x, y = world.bodies[3].def_.position
         world.create_mouse_joint(1, 3, (x + 0.3, y + 1.0), 5.0, 0.7)
-    kw = dict(contact_bucket_cap=-1, joint_bucket_cap=-1) if layout == "bucketed" else {}
+    if layout == "bucketed":
+        kw.update(contact_bucket_cap=-1, joint_bucket_cap=-1)
     state, cfg = world.freeze(device="cpu", lane_solve=False, use_fused_solver=False, **kw)
     assert cfg.use_fused_solver is False
     return state, cfg
@@ -410,10 +413,14 @@ def test_xla_route_on_the_card_matches_the_cpu(card, solver, scene, layout):
     """4 steps of 2 worlds on the card (the solve replayed from a CUDA graph
     from the third) and on the CPU: positions within 1e-4, colors and
     diagnostics equal; K2 once a step, K1 never."""
+    _card_vs_cpu(card, solver, scene, layout)
+
+
+def _card_vs_cpu(card, solver, scene, layout, **kw):
     from solver2d_tpu_torch import batched_step, replicate
     from solver2d_tpu_torch.solvers import fused_cuda
 
-    state, cfg = _xla_world(scene, solver, layout)
+    state, cfg = _xla_world(scene, solver, layout, **kw)
     step = batched_step(cfg)
     cpu = replicate(state, 2)
     cpu.bodies.v = cpu.bodies.v + torch.where((cpu.bodies.type == 2)[..., None], 0.2, 0.0) * torch.arange(2)[:, None, None]
@@ -429,10 +436,23 @@ def test_xla_route_on_the_card_matches_the_cpu(card, solver, scene, layout):
     for k in ("color_overflow", "pair_overflow", "contact_count", "pair_count"):
         assert torch.equal(getattr(gpu.diag, k).cpu(), getattr(cpu.diag, k)), k
     assert int(gpu.diag.color_overflow.max()) == 0
+    if solver == "TGS_STICKY":
+        assert torch.equal(gpu.contacts.friction_persisted.cpu(), cpu.contacts.friction_persisted)
+        assert float((gpu.contacts.friction_anchor_a.cpu() - cpu.contacts.friction_anchor_a).abs().max()) < 1e-4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_NGS_BLOCK"])
+@pytest.mark.parametrize("secondary", [dict(broadphase="sap", sap_window=48), dict(incremental_coloring=False)],
+                         ids=["sap", "mis"])
+def test_secondary_paths_on_the_card_match_the_cpu(card, secondary):
+    """The sweep and prune and the per-step MIS coloring on the base-4
+    pyramid under PGS_NGS_Block: the card's 4 steps equal the CPU's, as
+    in the test above."""
+    _card_vs_cpu(card, "PGS_NGS_BLOCK", "pyramid", "dense", **secondary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["TGS_SOFT", "PGS_NGS_BLOCK", "TGS_STICKY", "XPBD"])
 def test_xla_graph_replay_matches_eager(card, solver):
     """The XLA solve replayed from a CUDA graph equals the eager solve on
     the card bit for bit, over steps whose live colors change."""
@@ -457,3 +477,5 @@ def test_xla_graph_replay_matches_eager(card, solver):
     for name in ("position", "rot", "v", "w"):
         assert torch.equal(getattr(runs[0].bodies, name), getattr(runs[1].bodies, name)), name
     assert torch.equal(runs[0].contacts.normal_impulse, runs[1].contacts.normal_impulse)
+    assert torch.equal(runs[0].contacts.friction_persisted, runs[1].contacts.friction_persisted)
+    assert torch.equal(runs[0].contacts.friction_anchor_a, runs[1].contacts.friction_anchor_a)

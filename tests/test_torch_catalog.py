@@ -262,17 +262,18 @@ def test_testbed_stats_line_matches_jax(capsys):
 
 
 def test_unported_solver_is_refused():
-    """TGS_Sticky and XPBD are not ported (ROADMAP item 6); "all" is the
-    eight solvers of the per-world step."""
-    with pytest.raises(ValueError, match="ROADMAP item 6"):
-        parse_solvers("TGS_SOFT,TGS_STICKY")
-    with pytest.raises(ValueError, match="ROADMAP item 6"):
-        run_scene("Contact", "Single Box", [SolverType.XPBD], steps=1, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 6"):
-        SCENES[("Contact", "Single Box")](SolverType.TGS_STICKY).freeze(device="cpu")
+    """Every solver is ported: "all" is the ten solvers of the per-world
+    step; TGS_Sticky freezes with friction anchors of the contact table's
+    width; only the lane step still refuses TGS_Sticky (and XPBD), as in
+    the JAX package."""
     S = SolverType
-    assert parse_solvers("all") == [S.JACOBI, S.PGS, S.PGS_NGS, S.PGS_NGS_BLOCK, S.PGS_SOFT, S.SOFT_STEP, S.TGS_SOFT,
-                                    S.TGS_NGS]
+    assert parse_solvers("all") == list(S) and parse_solvers("TGS_SOFT,TGS_STICKY") == [S.TGS_SOFT, S.TGS_STICKY]
+    state, cfg = SCENES[("Contact", "Single Box")](S.TGS_STICKY).freeze(device="cpu")
+    C = cfg.max_contacts
+    assert state.contacts.friction_anchor_a.shape == (C, 2, 2) and state.contacts.friction_persisted.shape == (C,)
+    assert cfg.use_fused_solver is False
+    with pytest.raises(AssertionError, match="lane step runs"):
+        SCENES[("Contact", "Single Box")](S.TGS_STICKY).freeze(device="cpu", lane_solve=True, contact_bucket_cap=-1)
 
 
 def test_joint_grid_above_the_body_cap_is_refused():

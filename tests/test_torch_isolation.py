@@ -26,6 +26,10 @@ SCRIPT = textwrap.dedent(
     # the per-world step: contacts, soft revolute joints and a mouse joint
     w, planks = bridge(SolverType.TGS_SOFT, 4)
     w.create_mouse_joint(0, planks[1], (w.bodies[planks[1]].def_.position[0], 21.0), 5.0, 0.7)
+    for solver in (SolverType.TGS_STICKY, SolverType.XPBD):
+        state, cfg = w.freeze(device="cpu", lane_solve=False, solver=solver, iterations=1, extra_iterations=1)
+        out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+        assert float(joint_error(out).max()) < 0.1
     state, cfg = w.freeze(device="cpu", lane_solve=False, iterations=1, extra_iterations=1)
     out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
     assert int(out.diag.step_id[0]) == 1 and bool(torch.isfinite(out.bodies.position).all())
@@ -45,7 +49,7 @@ SCRIPT = textwrap.dedent(
     scene, out = runs[SolverType.TGS_SOFT]["scene"], runs[SolverType.TGS_SOFT]["state"]
     out = runtime.destroy_body(scene.on_step(out, 120), 1)
     assert metrics.statistics(out).body_count == 2
-    # the XLA route: every ported solver, dense and bucketed, and a joint-bucketed Bridge
+    # the XLA route: all ten solvers, dense and bucketed, and a joint-bucketed Bridge
     from solver2d_tpu_torch.config import XLA_SOLVERS
     w3, _ = pyramid_world(SolverType.PGS_NGS_BLOCK, 3)
     for solver in sorted(XLA_SOLVERS):
@@ -54,6 +58,11 @@ SCRIPT = textwrap.dedent(
                                    iterations=1, extra_iterations=1, contact_bucket_cap=cap)
             out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
             assert int(out.diag.contact_count[0]) > 0 and bool(torch.isfinite(out.bodies.position).all())
+    # the sweep and prune and the per-step MIS coloring
+    for kw in (dict(broadphase="sap"), dict(incremental_coloring=False)):
+        state, cfg = w3.freeze(device="cpu", lane_solve=False, iterations=1, extra_iterations=1, **kw)
+        out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+        assert int(out.diag.contact_count[0]) > 0 and bool(torch.isfinite(out.bodies.position).all())
     w, planks = bridge(SolverType.TGS_NGS, 4)
     state, cfg = w.freeze(device="cpu", lane_solve=False, joint_bucket_cap=-1, iterations=1)
     assert cfg.use_fused_solver is False and cfg.joint_bucket_cap > 0

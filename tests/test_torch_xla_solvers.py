@@ -47,6 +47,7 @@ from solver2d_tpu.step import step as jax_step
 from solver2d_tpu.utils.metrics import joint_error as jax_joint_error
 from solver2d_tpu_torch import batched_step, state_from_numpy, to_numpy
 from solver2d_tpu_torch.config import XLA_SOLVERS
+from solver2d_tpu_torch.config import SolverType as PSolver
 from solver2d_tpu_torch.ops import coloring as pcol
 from solver2d_tpu_torch.solvers import common as pcommon
 from solver2d_tpu_torch.solvers import contact_kernels as pck
@@ -62,7 +63,8 @@ from torch_parity import (
 torch.set_num_threads(1)
 W = 2
 STEPS = 3
-SOLVERS = [s.name for s in sorted(XLA_SOLVERS)]
+# TGS_Sticky and XPBD: tests/test_torch_sticky_xpbd.py
+SOLVERS = [s.name for s in sorted(XLA_SOLVERS - {PSolver.TGS_STICKY, PSolver.XPBD})]
 # per scene: the JAX config's changes (the port's config copies them)
 SCENE_KW = {
     "pyramid": dict(max_colors=5, gjk_iters=4, iterations=1),
@@ -71,10 +73,11 @@ SCENE_KW = {
 
 
 def _check_steps(scene, solver, world, **kw):
-    """3 steps of both, the port's world `world` held to the JAX step's.
-    Returns the port's batch and the JAX state."""
-    jstate, jcfg = jax_world_scene(scene)
-    jcfg = jcfg.replace(solver=JSolver[solver], **{**SCENE_KW.get(scene, {}), **kw})
+    """3 steps of both, the scene frozen under `solver`, the port's world
+    `world` held to the JAX step's. Returns the port's batch and the JAX
+    state."""
+    jstate, jcfg = jax_world_scene(scene, solver)
+    jcfg = jcfg.replace(**{**SCENE_KW.get(scene, {}), **kw})
     worlds = jax_worlds(jstate, W)
     batch = state_from_numpy(stack(worlds), device="cpu")
     cfg = port_config(jcfg).replace(use_fused_solver=False)

@@ -125,8 +125,9 @@ WORLD_TOL = {"pyramid": dict(rtol=0, atol=0), "bridge": dict(rtol=0, atol=1e-6)}
 WORLD_TOL["bridge_dyn_a"] = WORLD_TOL["bridge"]
 
 
-def jax_world_scene(name: str):
-    """(state, config) of the JAX package: the base-3 pyramid; the 4-plank
+def jax_world_scene(name: str, solver: str = "TGS_SOFT"):
+    """(state, config) of the JAX package, frozen under `solver` (which
+    sizes TGS_Sticky's friction anchors): the base-3 pyramid; the 4-plank
     Bridge with a mouse joint dragging plank 2 from the ground ("bridge");
     or the same Bridge with a mouse joint whose body A is plank 1, a
     dynamic body, dragging plank 3 ("bridge_dyn_a")."""
@@ -134,19 +135,20 @@ def jax_world_scene(name: str):
     from solver2d_tpu.models.contact_scenes import pyramid_world
     from solver2d_tpu.models.joint_scenes import bridge
 
+    solver = SolverType[solver]
     if name == "pyramid":
-        w, _ = pyramid_world(SolverType.TGS_SOFT, 3)
+        w, _ = pyramid_world(solver, 3)
         # the scene has no joints: the XLA solver skips the (inert) joint
         # phases that the fused solve runs
         kw = dict(solve_joints=False)
     else:
-        w = bridge(SolverType.TGS_SOFT, 4).world
+        w = bridge(solver, 4).world
         a, b = (0, 2) if name == "bridge" else (1, 3)
         p = w.body_position(b)
         w.create_mouse_joint(a, b, (p[0] + 0.3, p[1] + 1.0), 5.0, 0.7)
         # no contacts; a joint has at most 3 neighbours: 4 colors do
         kw = dict(max_colors=4, joint_max_colors=4)
-    return w.freeze(solver=SolverType.TGS_SOFT, narrowphase="lanes", **WORLD_KW, **kw)
+    return w.freeze(solver=solver, narrowphase="lanes", **WORLD_KW, **kw)
 
 
 def port_config(jcfg):

@@ -16,17 +16,21 @@ the configurations of `chip_smoke.py`:
   (the deepest contact penetration and the kinetic energy), "Joints/Ragdoll
   Stress" (`joint_error`, and its largest value over the run).
 
-Both run the solver given (TGS_SOFT by default, or any of the eight
-solvers of the port's per-world step); the JAX package always with its XLA
-solver (`use_pallas_solver=False`), the port on the route its `freeze`
-picks (K1 for the soft solvers where a world fits it), or on its XLA route
-with `--xla`. `--bucketed` runs both on the color-bucketed layout
+Both run the solver given (TGS_SOFT by default, or any of the ten solvers
+of the port's per-world step); the JAX package always with its XLA solver
+(`use_pallas_solver=False`), the port on the route its `freeze` picks (K1
+for the soft solvers where a world fits it), or on its XLA route with
+`--xla`. `--bucketed` runs both on the color-bucketed layout
 (`contact_bucket_cap=-1`, `joint_bucket_cap=-1`, sized by the JAX
-`freeze`). Prints both after every step, and the largest position
-difference between the two. The JAX figures, doubled, set chip_smoke's
-MAX_DRIFT_B, MAX_JOINT_ERROR_A, CATALOG_BOUNDS and XLA_BOUNDS.
+`freeze`); `--sap` with the sweep-and-prune broadphase at chip_smoke's
+settings (`SAP_KW`: a window of 48, and as many shape slots as shapes);
+`--mis` with the per-step MIS coloring (`incremental_coloring=False`).
+Prints both after every step, and the largest position difference between
+the two. The JAX figures, doubled, set chip_smoke's MAX_DRIFT_B,
+MAX_JOINT_ERROR_A, CATALOG_BOUNDS, XLA_BOUNDS and SECONDARY_BOUNDS.
 
 Usage: python tools/jax_world_bounds.py pyramid|bridge|"Category/Name" [steps] [solver] [--xla] [--bucketed]
+       [--sap] [--mis]
 """
 
 import os
@@ -53,20 +57,32 @@ from solver2d_tpu_torch.utils.metrics import joint_error as port_joint_error  # 
 from solver2d_tpu_torch.utils.metrics import kinetic_energy as port_kinetic_energy  # noqa: E402
 
 
+# chip_smoke.py's sweep-and-prune settings (its SAP_KW)
+SAP_WINDOW = 48
+
+
 def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT", xla: bool = False,
-         bucketed: bool = False):
+         bucketed: bool = False, sap: bool = False, mis: bool = False):
     kw = dict(narrowphase="lanes", use_pallas_solver=False)
     if bucketed:
         kw.update(contact_bucket_cap=-1, joint_bucket_cap=-1)
+    if mis:
+        kw.update(incremental_coloring=False)
     if scene == "pyramid":
         w, _ = pyramid_world(SolverType.TGS_SOFT, 20)
-        state, cfg = w.freeze(solver=SolverType[solver], max_contacts=896, max_colors=10, gjk_iters=10, **kw)
     elif scene == "bridge":
         w = bridge(SolverType.TGS_SOFT).world
-        state, cfg = w.freeze(solver=SolverType[solver], max_colors=8, **kw)
     else:
         sc = build(*scene.split("/", 1), SolverType[solver])
         assert sc.pre_step is None and sc.on_step is None, "a scene with hooks"
+        w = sc.world
+    if sap:
+        kw.update(broadphase="sap", sap_window=SAP_WINDOW, max_shapes=len(w.shapes))
+    if scene == "pyramid":
+        state, cfg = w.freeze(solver=SolverType[solver], max_contacts=896, max_colors=10, gjk_iters=10, **kw)
+    elif scene == "bridge":
+        state, cfg = w.freeze(solver=SolverType[solver], max_colors=8, **kw)
+    else:
         state, cfg = sc.freeze(**kw)
         if not sc.world.joints:
             # the JAX solver's joint phases over an empty table change nothing
@@ -74,7 +90,9 @@ def main(scene: str = "pyramid", steps: int = 23, solver: str = "TGS_SOFT", xla:
     pcfg = port.SimConfig(**{k: getattr(cfg, k) for k in port.SimConfig.__dataclass_fields__ if hasattr(cfg, k)})
     pcfg = pcfg.replace(lane_solve=False, use_fused_solver=False if xla else None)
     print(f"{scene} {solver}: JAX use_pallas_solver={cfg.use_pallas_solver}, contact_bucket_cap "
-          f"{cfg.contact_bucket_cap}, joint_bucket_cap {cfg.joint_bucket_cap}; port route "
+          f"{cfg.contact_bucket_cap}, joint_bucket_cap {cfg.joint_bucket_cap}, broadphase {cfg.broadphase} "
+          f"(window {cfg.sap_window}, {cfg.max_shapes} shape slots), incremental_coloring "
+          f"{cfg.incremental_coloring}; port route "
           f"{'fused' if port.config.use_fused(pcfg) else 'XLA'}", flush=True)
     pstep = port.batched_step(pcfg)
     pbatch = port.replicate(port.state_from_numpy(jax.tree.map(np.asarray, state), device="cpu"), 1)
@@ -110,4 +128,5 @@ if __name__ == "__main__":
     torch.set_num_threads(1)
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     main(args[0] if args else "pyramid", int(args[1]) if len(args) > 1 else 23,
-         args[2] if len(args) > 2 else "TGS_SOFT", xla="--xla" in sys.argv, bucketed="--bucketed" in sys.argv)
+         args[2] if len(args) > 2 else "TGS_SOFT", xla="--xla" in sys.argv, bucketed="--bucketed" in sys.argv,
+         sap="--sap" in sys.argv, mis="--mis" in sys.argv)
