@@ -82,7 +82,27 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    default solver, on the XLA route: the sweep-and-prune broadphase
    (`SAP_KW`) and the per-step MIS coloring (`incremental_coloring=False`),
    each checked as in phase 9 against SECONDARY_BOUNDS; the sweep and
-   prune without pair overflow.
+   prune without pair overflow;
+11. interaction on the card (`run_interaction`): path (b) under TGS_Soft
+   on the fused route with spare joint slots, INTERACT_WARMUP steps; then
+   in world 0 and in world INTERACT_WORLD: `pick_body` at the top box's
+   center finds it; `attach_mouse_joint` in every world, INTERACT_DRAG
+   steps with `move_mouse_target`, `detach_mouse_joint`; `raycast_world`
+   of a horizontal ray through the pyramid, culled (S > 64 shape slots)
+   equal to brute force; `query_aabb` and `test_point`; one of each runtime
+   edit of `utils/runtime.py`, then INTERACT_AFTER steps; `gjk_stats` warm
+   and cold; `validate_state` empty; `world_health` and
+   `reset_unhealthy_worlds` on a batch with one world blown up by
+   `set_linear_velocity`; a `save_npz` / `load_npz` round trip equal bit
+   for bit; `StepTimer` ms/step and `stage_times`. The same sequence on
+   the CPU (INTERACT_CPU_WORLDS worlds, through the plain twins) up to
+   INTERACT_DRAG steps after the attach equals the card's (phase 5's
+   tolerance, colors and diagnostics equal); K1 and K2 once a step, each
+   equal to its twin on a step's inputs with the mouse joint live; finite,
+   no color overflow, the dragged box nearer its target. If matplotlib
+   imports, one frame through `render_states` and a 4-frame
+   `InteractiveTestbed.record_gif` on the card; if not, one line says so
+   (an optional dependency, outside every check).
 Each phase's seconds are printed.
 
 The line before the last is a JSON object with each kernel's numbers; the
@@ -91,6 +111,7 @@ last line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -215,6 +236,14 @@ K2_CATALOG = (("Contact", "Confined"), ("Joints", "Ragdoll Stress"), ("Far", "St
               ("Far", "Recovery"))
 K2_CATALOG_STEPS = 6
 K1_CATALOG, K1_CATALOG_STEPS = ("Joints", "Ragdoll Stress"), 40
+# Phase 11, interaction on path (b): steps before the pick, dragging steps
+# (held to the CPU on INTERACT_CPU_WORLDS worlds), steps after the runtime
+# edits; the second world whose queries are checked; the world blown up
+# for the health check
+INTERACT_WARMUP, INTERACT_DRAG, INTERACT_AFTER = 3, 3, 2
+INTERACT_CPU_WORLDS = 4
+INTERACT_WORLD = 5
+BLOWN_WORLD = 7
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s, fp32 67 TFLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
@@ -631,16 +660,14 @@ def jittered(batch, seed=0):
     i * JITTER * N(0, 1) from a seeded generator (on the CPU)."""
     import torch
 
+    from solver2d_tpu_torch.parallel import apply_velocity_deltas
+
     g = torch.Generator().manual_seed(seed)
     b = batch.bodies
-    worlds = b.v.shape[0]
-    scale = JITTER * torch.arange(worlds, dtype=torch.float32)
+    scale = JITTER * torch.arange(b.v.shape[0], dtype=torch.float32)
     dv = torch.randn(b.v.shape, generator=g) * scale[:, None, None]
     dw = torch.randn(b.w.shape, generator=g) * scale[:, None]
-    dyn = b.type == 2
-    b.v = torch.where(dyn[..., None], b.v + dv, b.v)
-    b.w = torch.where(dyn, b.w + dw, b.w)
-    return batch
+    return apply_velocity_deltas(batch, dv, dw)
 
 
 def catalog_batch(scene, dev, worlds=CATALOG_WORLDS):
@@ -849,6 +876,214 @@ def run_xla_path(path, solver, layout, dev, card, counters, secondary=None):
     del batch, init_pos
     torch.cuda.empty_cache()
     return out
+
+
+def run_interaction(dev, card, counters):
+    """Phase 11: picking, dragging, raycasts, queries, runtime edits and the
+    utility modules on path (b) on the card, with the first steps after the
+    attach held to the CPU, and K1 and K2 held to their twins with the
+    mouse joint live. Returns a dict of its figures."""
+    import tempfile
+
+    import torch
+
+    from solver2d_tpu_torch import batched_step, pyramid_world, replicate, queries, SolverType
+    from solver2d_tpu_torch.solvers import fused_cuda
+    from solver2d_tpu_torch.solvers.fused_solve import fused_solve_plain
+    from solver2d_tpu_torch.solvers.loops import fused_static
+    from solver2d_tpu_torch.step import prepare
+    from solver2d_tpu_torch.utils import checkpoint, checks, profiling, runtime
+    from solver2d_tpu_torch.utils.metrics import gjk_stats
+
+    _, ids = pyramid_world(SolverType.TGS_SOFT, BASE_B)
+    top = ids[-1]
+    state, cfg = pyramid_b("cpu", "TGS_SOFT", max_joints=16)
+    if not cfg.use_fused_solver:
+        fail("phase 11: path (b) under TGS_Soft is not on the fused route")
+    step = batched_step(cfg)
+    # worlds w and w + 8 alike, jittered by (w mod 8) * JITTER
+    host = jittered(replicate(state, 8)).map(lambda x: x.repeat((W_B // 8,) + (1,) * (x.dim() - 1)))
+    gpu = host.to(dev)
+    cpu = host.map(lambda x: x[:INTERACT_CPU_WORLDS].clone())
+    S = int(cfg.max_shapes)
+    worlds = (0, INTERACT_WORLD)
+    slot = 0
+
+    for c in counters:
+        c.launches = 0
+    steps = 0
+    for _ in range(INTERACT_WARMUP):
+        gpu, cpu = step(gpu, DT), step(cpu, DT)
+        steps += 1
+
+    # pick the top box at its center in two worlds, attach in every world
+    center = gpu.bodies.position[:, top].clone()  # [W, 2]
+    picks = {}
+    for w in worlds:
+        found, body = queries.pick_body(gpu, center[w], world=w)
+        picks[w] = (bool(found), int(body))
+    if any(p != (True, top) for p in picks.values()):
+        fail(f"phase 11: pick_body at the top box's center found {picks}, not body {top}")
+    goal = center + torch.tensor([1.0, 1.0], device=dev)  # the last drag target
+    gpu = queries.attach_mouse_joint(gpu, slot, top, center, hertz=5.0)
+    cpu = queries.attach_mouse_joint(cpu, slot, top, center[:INTERACT_CPU_WORLDS].cpu(), hertz=5.0)
+    dist0 = float((gpu.bodies.position[:, top] - goal).norm(dim=-1).max())
+    held = None
+    for i in range(INTERACT_DRAG):
+        target = center + (i + 1) / INTERACT_DRAG * torch.tensor([1.0, 1.0], device=dev)
+        gpu = queries.move_mouse_target(gpu, slot, target)
+        cpu = queries.move_mouse_target(cpu, slot, target[:INTERACT_CPU_WORLDS].cpu())
+        if i == 0:
+            held = gpu  # a step's input with the mouse joint live
+        gpu, cpu = step(gpu, DT), step(cpu, DT)
+        steps += 1
+    dist1 = float((gpu.bodies.position[:, top] - goal).norm(dim=-1).max())
+    err, close, colors, diag = card_vs_cpu(gpu.map(lambda x: x[:INTERACT_CPU_WORLDS]), cpu, False)
+    gpu = queries.detach_mouse_joint(gpu, slot)
+
+    # raycasts, culled against brute force; AABB query and point test
+    rays = {}
+    for w in worlds:
+        y = float(center[w, 1]) - 4.0
+        p1, p2 = (-30.0, y), (30.0, y)
+        culled = queries.raycast_world(gpu, p1, p2, world=w)
+        brute = queries.raycast_world(gpu, p1, p2, max_candidates=S, world=w)
+        same = all(torch.equal(a, b) for a, b in zip(culled, brute))
+        rays[w] = dict(hit=bool(culled.hit), shape=int(culled.shape), fraction=float(culled.fraction), same=same)
+        if not (same and bool(culled.hit)):
+            fail(f"phase 11: raycast_world in world {w}: culled {culled} against brute force {brute}")
+        top_shape = int(torch.nonzero(gpu.shapes.body[w] == top)[0, 0])
+        c = gpu.bodies.position[w, top]
+        boxed = queries.query_aabb(gpu, c - 0.1, c + 0.1, world=w)
+        inside = queries.test_point(gpu, c, world=w)
+        if not (bool(boxed[top_shape]) and bool(inside[top_shape]) and int(inside.sum()) == 1):
+            fail(f"phase 11: query_aabb / test_point at the top box in world {w}")
+
+    # one of each runtime edit, then steps
+    alive_before = gpu.bodies.alive.clone()
+    gpu = queries.attach_mouse_joint(gpu, slot + 1, ids[-3], gpu.bodies.position[:, ids[-3]], hertz=5.0)
+    gpu = runtime.destroy_joint(gpu, slot + 1)
+    gpu = runtime.set_bodies_alive(gpu, [ids[-2]], False)
+    gpu = runtime.teleport_bodies(gpu, [ids[-4]], [[40.0, 2.0]])
+    gpu = runtime.set_linear_velocity(gpu, ids[-5], (0.5, 0.0))
+    gpu = runtime.set_angular_velocity(gpu, ids[-5], 0.2)
+    gpu = runtime.apply_force_to_center(gpu, ids[-6], (5.0, 0.0))
+    gpu = runtime.apply_linear_impulse(gpu, ids[-6], (0.2, 0.0), gpu.bodies.position[:, ids[-6]])
+    gpu = runtime.set_transform(gpu, ids[-7], (50.0, 2.0), 0.3)
+    gpu = runtime.destroy_shape(gpu, int(torch.nonzero(gpu.shapes.body[0] == ids[-8])[0, 0]))
+    for _ in range(INTERACT_AFTER):
+        gpu = step(gpu, DT)
+        steps += 1
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    print(f"[11] interaction on path (b): {W_B} worlds, TGS_Soft on the fused route; picks {picks}; drag: the top "
+          f"box's largest distance to its goal {dist0:.4f} -> {dist1:.4f}; card vs CPU ({INTERACT_CPU_WORLDS} worlds, "
+          f"{INTERACT_DRAG} steps after the attach): position err {err:.3e}, colors equal {colors}, diagnostics "
+          f"equal {diag}; raycasts {rays}; K1 {launches[0]}, K2 {launches[1]} launches in {steps} steps on {card}",
+          flush=True)
+    if not (close and colors and diag):
+        fail("phase 11: the card disagrees with the CPU after the attach")
+    if not dist1 < dist0:
+        fail(f"phase 11: the dragged box did not near its target ({dist0} -> {dist1})")
+    if launches != [steps, steps]:
+        fail(f"phase 11: K1 launched {launches[0]}, K2 {launches[1]} times in {steps} steps")
+    d = gpu.diag
+    if not finite(gpu.bodies) or int(d.color_overflow.max()) != 0:
+        fail("phase 11: non-finite state or color overflow after the edits")
+    if bool(gpu.bodies.alive[:, ids[-2]].any()) or not torch.equal(gpu.bodies.alive[:, :ids[-2]],
+                                                                       alive_before[:, :ids[-2]]):
+        fail("phase 11: set_bodies_alive changed other bodies")
+
+    # K1 and K2 against their twins on a step's inputs with the mouse joint live
+    x = prepare(held, DT, cfg).x
+    static = fused_static(cfg)
+    got = fused_cuda.fused_solve(x, **static)
+    want = fused_solve_plain(x, **static)
+    k1_err = max(float((g - w).abs().max()) if g.numel() else 0.0 for g, w in zip(got, want))
+    if not k1_err <= K1_ATOL:
+        fail(f"phase 11: K1 disagrees with its twin with the mouse joint live ({k1_err})")
+    mouse_rows = int(((x.jint[..., 3] & 2) != 0).sum())
+    k2 = check_k2_world("phase 11 (b) with a mouse joint", held, cfg, card)
+    print(f"[11] K1 equals its twin with the mouse joint live ({mouse_rows} live joint rows, err {k1_err:.1e}); "
+          f"K2 within {k2[0]:.3e}", flush=True)
+
+    # the GJK counters, the structure check, health and reset, checkpoints
+    warm = gjk_stats(gpu, gjk_iters=cfg.gjk_iters)
+    cold = gjk_stats(gpu, gjk_iters=cfg.gjk_iters, cold=True)
+    if not (warm.calls > 0 and cold.cache_hits == 0 and cold.max_iters <= cfg.gjk_iters
+            and cold.iters >= warm.iters):
+        fail(f"phase 11: gjk_stats warm {warm}, cold {cold}")
+    problems = [checks.validate_state(gpu, cfg, world=w) for w in worlds]
+    if any(problems):
+        fail(f"phase 11: validate_state: {problems}")
+    v = gpu.bodies.v[:, top].clone()
+    v[BLOWN_WORLD] = 1e6
+    blown = runtime.set_linear_velocity(gpu, top, v)
+    health = checks.world_health(blown)
+    fixed = checks.reset_unhealthy_worlds(blown, gpu)
+    if torch.nonzero(~health).flatten().tolist() != [BLOWN_WORLD] or not bool(checks.world_health(fixed).all()):
+        fail(f"phase 11: world_health {health.tolist()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_npz(path, gpu)
+        back = checkpoint.load_npz(path, device=dev)
+    pairs = list(zip(leaves(gpu), leaves(back)))
+    if not all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        fail("phase 11: save_npz / load_npz is not equal bit for bit")
+
+    # timing
+    timer = profiling.StepTimer()
+    batch = gpu
+    for _ in range(6):
+        batch = timer.timed(step, batch, DT)
+    stages = profiling.stage_times(gpu, cfg, repeats=3)
+    print(f"[11] gjk_stats warm {warm}, cold {cold}; validate_state []; world_health flags world {BLOWN_WORLD} and "
+          f"the reset heals it; save_npz/load_npz equal; StepTimer {timer.ms_per_step:.2f} ms/step (first "
+          f"{timer.compile_s * 1e3:.1f} ms); stage_times ms " + ", ".join(f"{k} {t:.2f}" for k, t in stages.items())
+          + f" on {card}", flush=True)
+
+    rendered = render_interaction(gpu, dev)
+    return dict(steps=steps, k1_launches=launches[0], k2_launches=launches[1], err=err, dist0=dist0, dist1=dist1,
+                k1_err=k1_err, k2_err=k2[0], ms_per_step=timer.ms_per_step, stages=stages, rendered=rendered,
+                gjk_warm=dataclasses.asdict(warm), gjk_cold=dataclasses.asdict(cold))
+
+
+def leaves(tree):
+    """The tensors of a state, field by field."""
+    out = []
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        out += leaves(v) if dataclasses.is_dataclass(v) else [v]
+    return out
+
+
+def render_interaction(batch, dev):
+    """One frame of the batch's world 0 through `render_states`, and a
+    4-frame `InteractiveTestbed.record_gif` of Single Box on the card, when
+    matplotlib imports; else a line that says so. Returns whether it
+    rendered."""
+    import tempfile
+
+    try:
+        import matplotlib
+    except ImportError:
+        print("[11] matplotlib is not installed here: rendering skipped (an optional dependency)", flush=True)
+        return False
+    matplotlib.use("Agg")
+    from solver2d_tpu_torch import SolverType
+    from solver2d_tpu_torch.interactive import InteractiveTestbed
+    from solver2d_tpu_torch.utils.draw import render_states
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        render_states({"TGS_SOFT": batch}, path=png, title="phase 11")
+        tb = InteractiveTestbed([SolverType.TGS_SOFT], scene="Contact/Single Box", device=dev)
+        gif = tb.record_gif(os.path.join(tmp, "itb.gif"), frames=4, every=1)
+        sizes = os.path.getsize(png), os.path.getsize(gif)
+    if not all(sizes):
+        fail("phase 11: an empty image")
+    print(f"[11] rendered a frame ({sizes[0]} bytes) and a 4-frame interactive GIF ({sizes[1]} bytes)", flush=True)
+    return True
 
 
 def run_path(label, step, batch, n_worlds, card, counters):
@@ -1185,9 +1420,12 @@ def main():
                               name) for name in SECONDARY]
     print("[10] secondary paths, every check passed; ms/step " + "; ".join(
         f"{r['secondary']} {r['ms_per_step']:.2f}" for r in secondary) + f" on {card}", flush=True)
+    # ---- 11. interaction on path (b)
+    phase("11")
+    interaction = run_interaction(dev, card, [fused_cuda.fused_solve, narrow_cuda.collide])
     phase("end")
 
-    k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()])
+    k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()] + [interaction["k2_err"]])
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {
@@ -1207,13 +1445,16 @@ def main():
             "bound_by_a": k1["TGS_SOFT"][1][5]["k2_bound_by"],
             "catalog": {f"{k[0]}/{k[1]}": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"), r))
                         for k, r in k2_catalog.items()},
+            "launches_phase11": interaction["k2_launches"], "steps_phase11": interaction["steps"],
         },
     ] + [
         {
             "name": f"K1 fused soft solve ({label})", "route": "cuda",
             "source": "solver2d_tpu_torch/csrc/fused_solve.cu",
             "replaces": "solver2d_tpu/solvers/pallas_solver.py:53",
-            "launches": k1_launches[solver], "max_abs_err": max(r[0] for r in k1[solver] + [k1_catalog[solver]]),
+            "launches": k1_launches[solver],
+            "max_abs_err": max([r[0] for r in k1[solver] + [k1_catalog[solver]]]
+                               + ([interaction["k1_err"]] if solver == "TGS_SOFT" else [])),
             "ms": k1[solver][0][1], "plain_ms": k1[solver][0][2], "bound_ms": k1[solver][0][3],
             "bound_by": k1[solver][0][4], "library_ms": None,
             **{k: k1[solver][0][5][k] for k in ("call_ms", "phases", "us_per_phase", "registers", "spill_bytes",
@@ -1221,6 +1462,8 @@ def main():
             "ms_a": k1[solver][1][1], "bound_ms_a": k1[solver][1][3], "phases_a": k1[solver][1][5]["phases"],
             "ms_ragdoll_stress": k1_catalog[solver][1], "plain_ms_ragdoll_stress": k1_catalog[solver][2],
             "bound_ms_ragdoll_stress": k1_catalog[solver][3], "bound_by_ragdoll_stress": k1_catalog[solver][4],
+            **({"launches_phase11": interaction["k1_launches"], "steps_phase11": interaction["steps"]}
+               if solver == "TGS_SOFT" else {}),
         }
         for solver, label in zip(FUSED, ("TGS_Soft", "SoftStep", "PGS_Soft"))
     ]}), flush=True)

@@ -38,6 +38,8 @@ JOINT_HERTZ = 60.0
 CONTACT_ZETA = 10.0
 
 INT32_MAX = 2**31 - 1
+# a large finite length: the capsule cast's "no candidate" fraction
+HUGE = 100000.0
 
 
 class SolverType(enum.IntEnum):

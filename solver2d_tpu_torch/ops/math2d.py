@@ -12,6 +12,12 @@ import math
 import torch
 
 
+def dot(a, b):
+    """a . b over the trailing dim of 2, as x + y (the JAX package's
+    two-element `sum`)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
 def cross(a, b):
     """2D cross product -> scalar (reference: math.h:53-56)."""
     return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
@@ -46,12 +52,26 @@ def length(v):
     return sqrt((v * v).sum(-1))
 
 
-def normalize(v, eps: float = 1e-12):
-    """v / |v|, as the JAX package forms it: times 1 / max(|v|, eps), and
-    zero where |v| <= eps."""
+def get_length_and_normalize(v, eps: float = 1e-12):
+    """(|v|, v / |v|), as the JAX package forms them: v times
+    1 / max(|v|, eps), and zero where |v| <= eps."""
     n = length(v)
     inv = torch.where(n > eps, 1.0 / torch.clamp(n, min=eps), 0.0)
-    return v * inv[..., None]
+    return n, v * inv[..., None]
+
+
+def normalize(v, eps: float = 1e-12):
+    """v / |v| (see `get_length_and_normalize`)."""
+    return get_length_and_normalize(v, eps)[1]
+
+
+def make_rot(angle, device=None):
+    """The rotation (sin, cos) of float32 angles. Taken in float64 and
+    rounded to float32, so that the card and the CPU give the same bits;
+    XLA's float32 sin and cos, which the JAX package calls, differ from
+    these correctly rounded values by 1 ulp on a small share of angles."""
+    a = torch.as_tensor(angle, dtype=torch.float32, device=device).double()
+    return torch.stack([torch.sin(a), torch.cos(a)], dim=-1).float()
 
 
 def normalize_rot(q):
@@ -83,6 +103,19 @@ def inv_rotate(q, v):
     x = q[..., 1] * v[..., 0] + q[..., 0] * v[..., 1]
     y = -q[..., 0] * v[..., 0] + q[..., 1] * v[..., 1]
     return torch.stack([x, y], dim=-1)
+
+
+def transform_point(p, q, v):
+    return p + rotate(q, v)
+
+
+def inv_transform_point(p, q, v):
+    return inv_rotate(q, v - p)
+
+
+def inv_mul_transforms(pa, qa, pb, qb):
+    """inv(A) * B of two transforms (reference: math.h:378-384): (p, q)."""
+    return inv_rotate(qa, pb - pa), inv_mul_rot(qa, qb)
 
 
 def atan2(y, x):

@@ -1,3 +1,4 @@
-from .batch import batch_states, batched_step, replicate
+from .batch import apply_velocity_deltas, batch_states, batched_step, randomize_velocities, replicate, replicate_state
 
-__all__ = ["batch_states", "batched_step", "replicate"]
+__all__ = ["apply_velocity_deltas", "batch_states", "batched_step", "randomize_velocities", "replicate",
+           "replicate_state"]

@@ -236,3 +236,12 @@ def to_numpy(state) -> dict:
         return out
 
     return conv(state)
+
+
+def world_to_numpy(state: State, world: int = 0) -> dict:
+    """`to_numpy` of one world: the state itself when it has the JAX
+    shapes, else world `world` of the [W, ...] batch."""
+    out = to_numpy(state)
+    if state.bodies.type.dim() == 1:
+        return out
+    return {k: {f: a[world] for f, a in v.items()} if isinstance(v, dict) else v[world] for k, v in out.items()}

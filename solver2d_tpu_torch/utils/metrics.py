@@ -1,6 +1,6 @@
 """Scene metrics, per world of a [W, ...] batch (analog of s2Statistics,
-reference: include/solver2d/timer.h:8-17, src/world.c:565-579). An own copy
-of the JAX package's `utils/metrics.py` (:15-85) and `joint_error`."""
+reference: include/solver2d/timer.h:8-17, src/world.c:565-579), and the GJK
+counters. An own copy of the JAX package's `utils/metrics.py`."""
 
 from __future__ import annotations
 
@@ -88,5 +88,51 @@ def joint_error(batch):
     worlds = torch.arange(j.body_a.shape[0], device=j.body_a.device)[:, None]
     pa = b.origin[worlds, j.body_a] + m.rotate(b.rot[worlds, j.body_a], j.local_anchor_a)
     pb = b.origin[worlds, j.body_b] + m.rotate(b.rot[worlds, j.body_b], j.local_anchor_b)
-    err = torch.linalg.vector_norm(pb - pa, dim=-1)
+    # math2d.length, not torch.linalg.vector_norm, which rounds differently
+    # from the JAX package's norm on the CPU
+    err = m.length(pb - pa)
     return torch.where(j.alive & (j.type == 0), err, 0.0).amax(dim=-1)
+
+
+@dataclasses.dataclass
+class GJKStats:
+    """The S2_GJK_DEBUG counters (reference: src/distance.c:480-482,
+    :572-574, :597-599): calls, total support iterations, the most
+    iterations of a call, and the pairs that enter with a warm simplex
+    cache. Computed on demand, never in the step; they size
+    `SimConfig.gjk_iters` by data."""
+
+    calls: int        # live pairs evaluated (s2_gjkCalls)
+    iters: int        # total support iterations (s2_gjkIters)
+    max_iters: int    # the worst pair (s2_gjkMaxIters)
+    cache_hits: int   # pairs entering with a warm simplex cache
+
+
+def gjk_stats(batch, gjk_iters: int = 20, cold: bool = False, world: int = 0) -> GJKStats:
+    """Run GJK again over one world's contact table on the inputs the
+    narrowphase reads, and count its convergence.
+
+    As in the reference's counters, `iterations` counts the support trips
+    beyond the warm-started simplex (distance.c:572-599): a settled contact
+    whose cached simplex already holds the origin counts 0. `cold=True`
+    zeroes the caches and measures the budget from scratch, the number
+    that sizes `SimConfig.gjk_iters`."""
+    from ..ops.distance import gjk
+
+    one = batch if batch.bodies.type.dim() == 1 else batch.map(lambda x: x[world])
+    shapes, bodies, con = one.shapes, one.bodies, one.contacts
+    sa, sb = con.shape_a.long(), con.shape_b.long()
+    ba, bb = con.body_a.long(), con.body_b.long()
+    xp, xq = m.inv_mul_transforms(bodies.origin[ba], bodies.rot[ba], bodies.origin[bb], bodies.rot[bb])
+    vb = xp[:, None, :] + m.rotate(xq[:, None, :], shapes.verts[sb])
+    cache_count = torch.zeros_like(con.cache_count) if cold else con.cache_count
+    out = gjk(shapes.verts[sa], shapes.count[sa], vb, shapes.count[sb], cache_count, con.cache_index_a,
+              con.cache_index_b, max_iters=gjk_iters)
+    live = con.alive
+    iters = torch.where(live, out.iterations, 0)
+    return GJKStats(
+        calls=int(live.sum()),
+        iters=int(iters.sum()),
+        max_iters=int(iters.max()),
+        cache_hits=int((live & (cache_count > 0)).sum()),
+    )

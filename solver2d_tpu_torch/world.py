@@ -363,6 +363,7 @@ class World:
         if config.broadphase not in ("grid", "sap"):
             raise ValueError(f"broadphase {config.broadphase!r}: 'grid' or 'sap'")
         if config.lane_solve:
+            assert config.solve_contacts, "lane_solve IS the contact solve"
             assert config.solver in LANE_SOLVERS, f"the lane step runs {sorted(s.name for s in LANE_SOLVERS)}"
             assert config.contact_bucket_cap != 0, "the lane step needs the bucketed layout"
             assert not self.joints, "the lane step solves no joints"

@@ -479,3 +479,145 @@ def test_xla_graph_replay_matches_eager(card, solver):
     assert torch.equal(runs[0].contacts.normal_impulse, runs[1].contacts.normal_impulse)
     assert torch.equal(runs[0].contacts.friction_persisted, runs[1].contacts.friction_persisted)
     assert torch.equal(runs[0].contacts.friction_anchor_a, runs[1].contacts.friction_anchor_a)
+
+
+# ------------------------------------------ queries, raycasts and their GJK
+
+
+def _random_shapes(n, seed):
+    """n shapes of every kind (circles, capsules, segments, boxes, random
+    convex polygons, some rounded) as padded arrays: verts [n, 8, 2], count
+    [n], radius [n]."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        c = rng.uniform(-2, 2, 2)
+        kind = i % 5
+        if kind == 0:
+            g = geometry.circle(c, rng.uniform(0.1, 1.0))
+        elif kind == 1:
+            g = geometry.capsule(c, c + rng.uniform(-1.5, 1.5, 2), rng.uniform(0.05, 0.5))
+        elif kind == 2:
+            g = geometry.segment(c, c + rng.uniform(-1.5, 1.5, 2))
+        elif kind == 3:
+            g = geometry.offset_box(rng.uniform(0.1, 1.0), rng.uniform(0.1, 1.0), c, rng.uniform(-3, 3))
+        else:
+            k = rng.randint(3, 9)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, k)) + np.arange(k) * 1e-3
+            g = geometry.polygon(c + np.stack([np.cos(ang), np.sin(ang)], -1) * rng.uniform(0.3, 1.5),
+                                 rng.choice([0.0, 0.1]))
+        out.append(g)
+    return (torch.from_numpy(np.stack([np.asarray(g.verts, np.float32) for g in out])),
+            torch.tensor([g.count for g in out], dtype=torch.int32),
+            torch.tensor([g.radius for g in out], dtype=torch.float32))
+
+
+def _equal_trees(got, want):
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w), (g, w)
+
+
+@pytest.mark.cuda
+def test_gjk_raycasts_and_point_test_on_the_card_match_the_cpu(card):
+    """`distance.gjk` (warm and cold caches), every shape cast and the point
+    test on every shape kind: the card's outputs equal the CPU's."""
+    from solver2d_tpu_torch.ops import distance, raycast
+
+    va, ca, ra = _random_shapes(240, 1)
+    vb, cb, _ = _random_shapes(240, 2)
+    rng = np.random.RandomState(3)
+    cc = torch.from_numpy(np.where(rng.rand(240) < 0.5, rng.randint(1, 4, 240), 0).astype(np.int32))
+    cia = torch.from_numpy(np.stack([rng.randint(0, c, 3) for c in ca.numpy()]).astype(np.int32))
+    cib = torch.from_numpy(np.stack([rng.randint(0, c, 3) for c in cb.numpy()]).astype(np.int32))
+    args = (va, ca, vb, cb, cc, cia, cib)
+    _equal_trees(distance.gjk(*[a.to(card) for a in args]), distance.gjk(*args))
+    p1 = torch.from_numpy(rng.uniform(-4, 4, (240, 2)).astype(np.float32))
+    p2 = p1 + torch.from_numpy(rng.uniform(-6, 6, (240, 2)).astype(np.float32))
+    for fn, xs in ((raycast.raycast_circle, (p1, p2, 0.8, va[:, 0], ra)),
+                   (raycast.raycast_capsule, (p1, p2, 0.8, va[:, 0], va[:, 1], ra)),
+                   (raycast.raycast_polygon, (p1, p2, 0.8, va, ca, ra)),
+                   (raycast.raycast_shape, (p1, p2, 0.8, va, ca, ra))):
+        got = fn(*[x.to(card) if isinstance(x, torch.Tensor) else x for x in xs])
+        _equal_trees(got, fn(*xs))
+    inside = raycast.point_in_shape(p1.to(card), va.to(card), ca.to(card), ra.to(card))
+    assert torch.equal(inside.cpu(), raycast.point_in_shape(p1, va, ca, ra))
+
+
+def _pyramid_batch(base, W, steps, dev, solver="TGS_SOFT"):
+    """(batch on dev, the same on the CPU, config, box ids): W worlds of a
+    pyramid with jittered velocities, stepped `steps` times on each."""
+    from solver2d_tpu_torch import SolverType, batched_step, pyramid_world, replicate
+
+    w, ids = pyramid_world(SolverType[solver], base)
+    state, cfg = w.freeze(device="cpu", lane_solve=False, iterations=2, extra_iterations=1)
+    cpu = replicate(state, W)
+    g = torch.Generator().manual_seed(0)
+    dyn = cpu.bodies.type == 2
+    cpu.bodies.v = torch.where(dyn[..., None], cpu.bodies.v + 0.1 * torch.randn(cpu.bodies.v.shape, generator=g),
+                               cpu.bodies.v)
+    gpu = cpu.to(dev)
+    step = batched_step(cfg)
+    for _ in range(steps):
+        cpu, gpu = step(cpu, 1.0 / 60.0), step(gpu, 1.0 / 60.0)
+    return gpu, cpu, cfg, ids
+
+
+@pytest.mark.cuda
+def test_raycast_world_culled_matches_brute_force_on_the_card(card):
+    """A base-12 pyramid (80 shape slots, above the default 64 candidates):
+    the culled world raycast equals the brute-force scan on the card, and
+    the card's queries equal the CPU's."""
+    from solver2d_tpu_torch import queries
+
+    gpu, cpu, cfg, _ = _pyramid_batch(12, 2, 2, card)
+    S = cfg.max_shapes
+    assert S > 64
+    for w in (0, 1):
+        for y in (0.5, 3.2, 7.9, 11.5):
+            culled = queries.raycast_world(gpu, (-20.0, y), (20.0, y), world=w)
+            brute = queries.raycast_world(gpu, (-20.0, y), (20.0, y), max_candidates=S, world=w)
+            assert bool(culled.hit)
+            for a, b in zip(culled, brute):
+                assert torch.equal(a, b)
+            _equal_trees(culled, queries.raycast_world(cpu, (-20.0, y), (20.0, y), world=w))
+        p = cpu.bodies.position[w, 5]
+        assert torch.equal(queries.test_point(gpu, p, world=w).cpu(), queries.test_point(cpu, p, world=w))
+        assert torch.equal(queries.query_aabb(gpu, p - 1, p + 1, world=w).cpu(),
+                           queries.query_aabb(cpu, p - 1, p + 1, world=w))
+
+
+@pytest.mark.cuda
+def test_pick_and_drag_on_the_card(card):
+    """Pick the top box of a base-5 pyramid (TGS_Soft, the fused route) in
+    each of 4 worlds, attach a mouse joint and drag it for 3 steps: K1 and
+    K2 launched once a step, the card within phase 5's 1e-4 of the CPU with
+    equal colors, the box nearer its goal."""
+    from solver2d_tpu_torch import batched_step, queries
+    from solver2d_tpu_torch.solvers import fused_cuda
+
+    gpu, cpu, cfg, ids = _pyramid_batch(5, 4, 1, card)
+    assert cfg.use_fused_solver
+    top = ids[-1]
+    for w in range(4):
+        found, body = queries.pick_body(gpu, gpu.bodies.position[w, top], world=w)
+        assert bool(found) and int(body) == top
+    center = cpu.bodies.position[:, top]
+    goal = center + 1.0
+    gpu = queries.attach_mouse_joint(gpu, 0, top, center.to(card), hertz=5.0)
+    cpu = queries.attach_mouse_joint(cpu, 0, top, center, hertz=5.0)
+    step = batched_step(cfg)
+    k1, k2 = fused_cuda.fused_solve.launches, narrow_cuda.collide.launches
+    for i in range(3):
+        target = center + (i + 1) / 3.0
+        gpu = queries.move_mouse_target(gpu, 0, target.to(card))
+        cpu = queries.move_mouse_target(cpu, 0, target)
+        gpu, cpu = step(gpu, 1.0 / 60.0), step(cpu, 1.0 / 60.0)
+        assert (fused_cuda.fused_solve.launches - k1, narrow_cuda.collide.launches - k2) == (i + 1, i + 1)
+    torch.cuda.synchronize()
+    assert float((gpu.bodies.position.cpu() - cpu.bodies.position).abs().max()) <= 1e-4
+    assert torch.equal(gpu.joints.color.cpu(), cpu.joints.color) and torch.equal(gpu.contacts.color.cpu(),
+                                                                                 cpu.contacts.color)
+    d0 = (center - goal).norm(dim=-1)
+    d1 = (gpu.bodies.position[:, top].cpu() - goal).norm(dim=-1)
+    assert bool((d1 < d0).all())

@@ -69,6 +69,31 @@ SCRIPT = textwrap.dedent(
     out = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
     assert float(joint_error(out).max()) < 0.1
     assert testbed.parse_solvers("all") == sorted(XLA_SOLVERS)
+    # the queries, raycasts and GJK, the runtime and utility modules, the
+    # debug draw and the interactive testbed (imported without matplotlib)
+    import os, tempfile  # noqa: E401
+    import solver2d_tpu_torch.interactive, solver2d_tpu_torch.utils.draw  # noqa: E401,F401
+    from solver2d_tpu_torch import queries
+    from solver2d_tpu_torch.ops import distance, raycast  # noqa: F401
+    from solver2d_tpu_torch.utils import checkpoint, checks, handles, profiling, settings  # noqa: F401
+    from solver2d_tpu_torch.parallel import randomize_velocities, replicate_state  # noqa: F401
+    assert "matplotlib" not in sys.modules and "PIL" not in sys.modules
+    w3, ids = pyramid_world(SolverType.TGS_SOFT, 3)
+    state, cfg = w3.freeze(device="cpu", lane_solve=False, iterations=1)
+    batch = batched_step(cfg)(replicate(state, 2), 1.0 / 60.0)
+    hit = queries.raycast_world(batch, (-5.0, 0.5), (5.0, 0.5), max_candidates=4)
+    assert bool(hit.hit) and int(hit.shape) >= 0
+    center = batch.bodies.position[1, ids[-1]]
+    found, body = queries.pick_body(batch, center, world=1)
+    assert bool(found) and int(body) == ids[-1]
+    batch = queries.attach_mouse_joint(batch, 0, int(body), center + 0.5)
+    batch = runtime.set_linear_velocity(batch, ids[0], (0.5, 0.0))
+    batch = batched_step(cfg)(batch, 1.0 / 60.0)
+    assert bool(checks.world_health(batch).all()) and checks.validate_state(batch, cfg) == []
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_npz(os.path.join(tmp, "s.npz"), batch)
+        back = checkpoint.load_npz(os.path.join(tmp, "s.npz"), device="cpu")
+    assert torch.equal(back.bodies.position, batch.bodies.position) and bool(back.joints.alive[:, 0].all())
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "solver2d_tpu"))
     assert not [m for m in loaded if sys.modules[m] is not None], loaded
     print("isolated ok")
