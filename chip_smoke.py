@@ -61,7 +61,12 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    separates, Ragdoll Stress and the Joint Grid hold their joints). Every
    scene also runs under each solver only the XLA route runs (XLA_ONLY,
    TGS_Sticky and XPBD among them) for CATALOG_CHECK + XLA_ONLY_STEPS
-   steps: finite, K2 once a step, K1 never;
+   steps: finite, K2 once a step, K1 never; and every other scene under
+   SoftStep and PGS_Soft for as many steps, on the route `World.freeze`
+   picks, held card to twin (not to the CPU, for the script's time):
+   finite, K2 once a step, K1 once a step on the fused route and equal to
+   its twin on the card on the inputs of the run's last solve, no pair
+   overflow in world 0 outside PAIR_OVERFLOW_SCENES;
    Pyramid, Ragdoll Stress and Confined (XLA_CHECK_SCENES) also held to
    the CPU for their first CATALOG_CHECK steps (where the solver blows a
    scene up, within the CPU's own spread under a 1-ulp change of the
@@ -102,7 +107,21 @@ them it exits non-zero and prints no result. Phases (any failure exits 1):
    no color overflow, the dragged box nearer its target. If matplotlib
    imports, one frame through `render_states` and a 4-frame
    `InteractiveTestbed.record_gif` on the card; if not, one line says so
-   (an optional dependency, outside every check).
+   (an optional dependency, outside every check);
+12. the world batch split over mesh entries (`parallel.sharding`), on
+   `make_mesh()` (the one card) and on a mesh that lists the card twice
+   (two shards, each on its own stream): the lane path at phase 4's width
+   and configuration, 3 steps equal to `step_batch` bit for bit, K2 once a
+   shard a step; path (b) under TGS_Soft (fused route) and PGS_NGS_Block
+   (XLA route): 3 steps of jittered worlds equal to `batched_step` bit for
+   bit, then WARMUP + STEPS steps gated as in phase 6 (phase 9's bound on
+   the XLA route), K1 once a shard a step on the fused route and never on
+   the XLA route, K2 once a shard a step, ms/step of one shard against two;
+   one NCCL rank (`distributed.initialize`, a file:// store): the mesh
+   holds its group, `global_batch` equals `replicate`, the all_reduce of
+   `metrics_psum_example` equals the local sum; `ops/manifold.collide` on
+   [2, C] first-step pairs of the lane scene, K2 against its twin on the
+   CPU (integers equal, floats within K2_ATOL).
 Each phase's seconds are printed.
 
 The line before the last is a JSON object with each kernel's numbers; the
@@ -541,12 +560,13 @@ def check_k2_world(name, batch, cfg, card):
     return err, k2_ms, p_ms, k2_b, "bytes" if k2_bb >= k2_bo else "operations"
 
 
-def check_k1(name, state, cfg, W, dev, card, timed=True, steps=2, scene=None, k2=True):
+def check_k1(name, state, cfg, W, dev, card, timed=True, steps=2, scene=None, k2=True, mixed=False):
     """K1 against its twin on the inputs the per-world step hands it after
     `steps` steps of W worlds under cfg.solver (`state` one world, or a
     batch of W if `scene` is given, stepped with the scene's hooks), and, if
     `timed` and `k2`, K2 against its twin on the path's flattened
-    narrowphase inputs. Returns (max abs error, kernel ms, twin ms, bound
+    narrowphase inputs. With `mixed`, the launch must hold live contacts,
+    limits and motors. Returns (max abs error, kernel ms, twin ms, bound
     ms, bound_by, extras); the times, the bound and the extras (K1's
     barriers, attributes and staging; K2's time and bound at this shape)
     only if `timed`."""
@@ -581,14 +601,15 @@ def check_k1(name, state, cfg, W, dev, card, timed=True, steps=2, scene=None, k2
     j = batch.joints
     n_lim, n_mot = int((j.alive & j.enable_limit).sum()), int((j.alive & j.enable_motor).sum())
     n_eng = int((j.alive & ((j.lower_impulse != 0) | (j.upper_impulse != 0))).sum())
-    print(f"[3] K1 vs twin, {cfg.solver.name}, {name}: W={W} B={x.bs.shape[1]} C={x.cint.shape[1]} "
+    print(f"[{_PHASE.get('name', '3')}] K1 vs twin, {cfg.solver.name}, {name}: W={W} B={x.bs.shape[1]} "
+          f"C={x.cint.shape[1]} "
           f"J={x.jint.shape[1]}, {n_c} active contacts, {n_j} live joints ({n_lim} limited, {n_eng} of them with a "
           f"limit engaged last step, {n_mot} motored); max abs err bodies {errs[0]:.3e}, "
           f"normal impulses {errs[1]:.3e}, tangent impulses {errs[2]:.3e}, joint impulses {errs[3]:.3e} "
           f"(tol {K1_ATOL})", flush=True)
     if not err <= K1_ATOL:
         fail(f"K1 disagrees with its plain twin ({cfg.solver.name}, {name})")
-    if scene is not None and not (n_c and n_lim and n_mot):
+    if mixed and not (n_c and n_lim and n_mot):
         fail(f"K1 ({name}): the launch lacks live contacts, limits or motors")
     if not timed:
         return err, None, None, None, None, {}
@@ -681,15 +702,20 @@ def catalog_batch(scene, dev, worlds=CATALOG_WORLDS):
     return batch.to(dev), batch, cfg
 
 
-def frame(scene, step, batch, i):
-    """Frame i of a scene: its pre_step and on_step hooks, then one step."""
+def hooked(scene, batch, i):
+    """Frame i of a scene up to its step: its pre_step and on_step hooks."""
     if scene.pre_step is not None:
         batch = scene.pre_step(batch)
     if scene.on_step is not None:
         new = scene.on_step(batch, i)
         if new is not None:
             batch = new
-    return step(batch, DT)
+    return batch
+
+
+def frame(scene, step, batch, i):
+    """Frame i of a scene: its hooks, then one step."""
+    return step(hooked(scene, batch, i), DT)
 
 
 def card_vs_cpu(gpu, cpu, far):
@@ -709,13 +735,15 @@ def card_vs_cpu(gpu, cpu, far):
     return float(diff.max()), close, colors, diag
 
 
-def run_catalog_scene(key, solver, dev, card, counters, compare=True):
+def run_catalog_scene(key, solver, dev, card, counters, compare=True, short=False):
     """Phase 8 for one scene under one solver: CATALOG_WORLDS worlds, the
     first CATALOG_CHECK steps on the card and, if `compare`, through the
     twins on the CPU, compared (the Joint Grid's world 0 only); then the
-    card alone to the scene's run length (a solver only the XLA route runs:
-    CATALOG_CHECK + XLA_ONLY_STEPS), timed after those steps; launches, finiteness
-    and the scene's bounds. Returns a dict of its figures."""
+    card alone to the scene's run length (a solver only the XLA route runs,
+    or a `short` run of a fused solver: CATALOG_CHECK + XLA_ONLY_STEPS),
+    timed after those steps; launches, finiteness and the scene's bounds. A
+    `short` run on the fused route also holds K1 to its twin on the card on
+    the inputs of its last solve. Returns a dict of its figures."""
     import torch
 
     from solver2d_tpu_torch import batched_step
@@ -728,7 +756,8 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
         cpu = cpu.map(lambda x: x[:1])
     fused = bool(cfg.use_fused_solver)
     step = batched_step(cfg)
-    n = CATALOG_RUN.get(key, CATALOG_CHECK + STEPS) if solver in FUSED else CATALOG_CHECK + XLA_ONLY_STEPS
+    n = (CATALOG_RUN.get(key, CATALOG_CHECK + STEPS) if solver in FUSED and not short
+         else CATALOG_CHECK + XLA_ONLY_STEPS)
     cpu0 = cpu.map(lambda x: x.clone())
     if compare:
         for i in range(CATALOG_CHECK):
@@ -756,11 +785,17 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(CATALOG_CHECK, n):
-        gpu = frame(scene, step, gpu, i)
+        last = hooked(scene, gpu, i)  # the last step's input
+        gpu = step(last, DT)
         worst_joint = torch.maximum(worst_joint, joint_error(gpu))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / (n - CATALOG_CHECK) * 1e3
     launches = [c.launches for c in counters]
+    k1_err = None
+    if short and fused:  # after the launches are read: these launches compare
+        k1_err = check_k1(f"{key[0]}/{key[1]}, the last of {n} steps", last, cfg, CATALOG_WORLDS, dev, card,
+                          timed=False, steps=0, scene=scene, k2=False)[0]
+    del last
     d = gpu.diag
     b = gpu.bodies
     out = dict(
@@ -771,7 +806,7 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
         color_overflow=int(d.color_overflow.max()), pair_overflow=bool(d.pair_overflow.any()),
         pair_overflow_0=bool(d.pair_overflow[0]), max_penetration=float(d.max_penetration[0]),
         kinetic_energy=float(kinetic_energy(gpu)[0]), joint_error=float(worst_joint[0]),
-        joint_error_all=float(worst_joint.max()),
+        joint_error_all=float(worst_joint.max()), k1_err=k1_err,
     )
     checked = (f"{CATALOG_CHECK} steps card vs CPU twins{' (world 0)' if cpu.bodies.type.shape[0] == 1 else ''}: "
                f"position err {err:.3e}" + (f" (the CPU's spread under a 1-ulp change of the initial velocities "
@@ -797,7 +832,8 @@ def run_catalog_scene(key, solver, dev, card, counters, compare=True):
     for metric, bound in CATALOG_BOUNDS.get((key, solver), {}).items():
         if not out[metric] < bound:
             fail(f"{out['scene']} {solver}: {metric} {out[metric]} >= its bound {bound}")
-    if key == ("Contact", "Warm Start Energy") and solver in FUSED and bool(b.alive[:, scene.meta["top"]].any()):
+    if (key == ("Contact", "Warm Start Energy") and n >= CATALOG_RUN[key]
+            and bool(b.alive[:, scene.meta["top"]].any())):
         fail("Warm Start Energy: the top circle outlived its step-120 event")
     return out
 
@@ -1057,6 +1093,170 @@ def leaves(tree):
     return out
 
 
+def same_state(a, b):
+    """Every tensor of two states equal, bit for bit."""
+    import torch
+
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def run_split(dev, card, lane_state, lane_cfg, counters):
+    """Phase 12: the world batch split over mesh entries on the card
+    (`parallel.sharding`), on `make_mesh()` (the one card) and on a mesh
+    that lists the card twice (two shards, each on its own stream): the lane
+    path at full width and path (b) under TGS_Soft (fused route) and
+    PGS_NGS_Block (XLA route), each equal to the unsharded step bit for bit
+    for 3 steps, then gated over WARMUP + STEPS steps; one NCCL rank through
+    `distributed`; `ops/manifold.collide` (K2) against its twin on the CPU.
+    Returns a dict of its figures."""
+    import tempfile
+
+    import torch
+
+    from solver2d_tpu_torch import batched_step, make_mesh, replicate, sharded_step, step_batch
+    from solver2d_tpu_torch.ops import manifold
+    from solver2d_tpu_torch.parallel import metrics_psum_example
+    from solver2d_tpu_torch.parallel.distributed import global_batch, initialize
+    from solver2d_tpu_torch.solvers import graphs
+
+    meshes = {"1 shard": make_mesh(), "2 shards": make_mesh([dev, dev])}
+    if meshes["1 shard"].size != 1:
+        fail(f"phase 12: make_mesh() holds {meshes['1 shard'].size} entries on a one-card machine")
+    out = dict(launches={}, ms={}, steps=WARMUP + STEPS)
+
+    # the lane path at the bench configuration: 3 steps against step_batch
+    batch = replicate(lane_state, W)
+    want = batch
+    for _ in range(3):
+        want = step_batch(want, DT, lane_cfg)
+    for label, mesh in meshes.items():
+        for c in counters:
+            c.launches = 0
+        got = batch
+        stepf = sharded_step(lane_cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            got = stepf(got, DT)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        launches = [c.launches for c in counters]
+        equal = same_state(got.gather(dev), want)
+        out["launches"][f"lane {label}"] = launches
+        out["ms"][f"lane {label}"] = ms
+        print(f"[12] lane path {W} worlds x base-{BASE} on {label}: 3 steps equal to step_batch bit for bit "
+              f"{equal}; K1 {launches[0]}, K2 {launches[1]} launches; {ms:.2f} ms/step on {card}", flush=True)
+        if not equal:
+            fail(f"phase 12: the lane path on {label} differs from step_batch")
+        if launches != [0, 3 * mesh.size]:
+            fail(f"phase 12: the lane path on {label}: K1 launched {launches[0]}, K2 {launches[1]} times in 3 steps")
+        del got
+    # the manifold of the first-step pairs of two lane worlds, as
+    # `ops/manifold.collide` takes them (per pair, a [2, C] batch)
+    del batch, want
+    s1 = step_batch(replicate(lane_state, 2), DT, lane_cfg)
+    c, sh, bo = s1.contacts, s1.shapes, s1.bodies
+    worlds = torch.arange(2, device=dev)[:, None]
+    sa, sb = c.shape_a.long(), c.shape_b.long()
+    args = (sh.verts[worlds, sa], sh.normals[worlds, sa], sh.count[worlds, sa], sh.radius[worlds, sa],
+            sh.verts[worlds, sb], sh.normals[worlds, sb], sh.count[worlds, sb], sh.radius[worlds, sb],
+            bo.origin[worlds, c.body_a.long()], bo.rot[worlds, c.body_a.long()],
+            bo.origin[worlds, c.body_b.long()], bo.rot[worlds, c.body_b.long()],
+            c.cache_count, c.cache_index_a, c.cache_index_b)
+    k0 = counters[1].launches
+    on_card = manifold.collide(*args, gjk_iters=lane_cfg.gjk_iters)
+    torch.cuda.synchronize()
+    k2_manifold = counters[1].launches - k0
+    on_cpu = manifold.collide(*(a.cpu() for a in args), gjk_iters=lane_cfg.gjk_iters)
+    ints = all(torch.equal(g.cpu(), w) for g, w in zip(on_card, on_cpu) if not g.dtype.is_floating_point)
+    m_err = max(float((g.cpu() - w).abs().max()) for g, w in zip(on_card, on_cpu) if g.dtype.is_floating_point)
+    n_pts = int((on_cpu.point_count > 0).sum())
+    print(f"[12] ops/manifold.collide on [2, {c.key.shape[1]}] first-step pairs of the lane scene ({n_pts} with "
+          f"points): K2 {k2_manifold} launch; card vs CPU twin: integers equal {ints}, floats max abs err "
+          f"{m_err:.3e} (tol {K2_ATOL})", flush=True)
+    if not (ints and m_err <= K2_ATOL and k2_manifold == 1 and n_pts > 0):
+        fail("phase 12: ops/manifold.collide on the card disagrees with its twin")
+    out["manifold_err"] = m_err
+    del s1, args, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    # path (b): 3 steps of jittered worlds against batched_step, then the
+    # gated run of phase 6 (phase 9's bound on the XLA route)
+    for solver in ("TGS_SOFT", "PGS_NGS_BLOCK"):
+        state_b, cfg_b = pyramid_b(dev, solver)
+        fused = bool(cfg_b.use_fused_solver)
+        if fused != (solver == "TGS_SOFT"):
+            fail(f"phase 12: path (b) {solver} is not on the route expected")
+        step = batched_step(cfg_b)
+        start = jittered(replicate(state_b.to("cpu"), W_B)).to(dev)
+        want = start
+        for _ in range(3):
+            want = step(want, DT)
+        bound = MAX_DRIFT_B[solver] if fused else XLA_BOUNDS[("b", "dense")][solver]
+        for label, mesh in meshes.items():
+            stepf = sharded_step(cfg_b, mesh)
+            got = start
+            for _ in range(3):
+                got = stepf(got, DT)
+            equal = same_state(got.gather(dev), want)
+            batch = replicate(state_b, W_B)
+            init_pos = batch.bodies.position.clone()
+            batch, ms, launches = run_path(f"[12] path (b) {solver} on {label}", lambda b: stepf(b, DT), batch, W_B,
+                                           card, counters)
+            batch = batch.gather(dev)
+            b, d = batch.bodies, batch.diag
+            dyn = (b.type[0] == 2) & b.alive[0]
+            drift = float((b.position - init_pos)[:, dyn].norm(dim=-1).max())
+            out["launches"][f"(b) {solver} {label}"] = launches
+            out["ms"][f"(b) {solver} {label}"] = ms
+            n = WARMUP + STEPS
+            print(f"[12] path (b) {solver} ({'fused' if fused else 'XLA'} route) on {label}: 3 steps of jittered "
+                  f"worlds equal to batched_step bit for bit {equal}; after {n} steps: largest box displacement "
+                  f"{drift:.6f} (bound {bound:.6f}), color overflow max {int(d.color_overflow.max())}; K1 "
+                  f"{launches[0]}, K2 {launches[1]} launches", flush=True)
+            if not equal:
+                fail(f"phase 12: path (b) {solver} on {label} differs from batched_step")
+            if not finite(b) or int(d.color_overflow.max()) != 0:
+                fail(f"phase 12: path (b) {solver} on {label}: non-finite state or color overflow")
+            if not drift < bound:
+                fail(f"phase 12: path (b) {solver} on {label}: the pyramid does not stand ({drift} >= {bound})")
+            if launches != [n * mesh.size if fused else 0, n * mesh.size]:
+                fail(f"phase 12: path (b) {solver} on {label}: K1 launched {launches[0]}, K2 {launches[1]} times "
+                     f"in {n} steps")
+            del got, batch, init_pos
+        graphs.clear()
+        torch.cuda.empty_cache()
+    print("[12] ms/step, 1 shard against 2 on the one card: " + "; ".join(
+        f"{what} {out['ms'][what + ' 1 shard']:.2f} / {out['ms'][what + ' 2 shards']:.2f}"
+        for what in ("lane", "(b) TGS_SOFT", "(b) PGS_NGS_BLOCK")) + f" on {card}", flush=True)
+
+    # one NCCL rank: the mesh takes its group in; global_batch and the
+    # all_reduce of metrics_psum_example
+    state_b, cfg_b = pyramid_b(dev, "TGS_SOFT")
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0)
+        try:
+            backend = torch.distributed.get_backend()
+            mesh = make_mesh()
+            gb = global_batch(state_b, W_B, mesh)
+            made = same_state(gb.gather(dev), replicate(state_b, W_B))
+            gb = sharded_step(cfg_b, mesh)(gb, DT)
+            local = gb.gather(dev)
+            ke = metrics_psum_example(gb, mesh)
+            want_ke = 0.5 * torch.sum(local.bodies.v ** 2)
+            torch.cuda.synchronize()
+            reduced = bool(torch.equal(ke, want_ke))
+        finally:
+            torch.distributed.destroy_process_group()
+    print(f"[12] one {backend} rank: group in the mesh {mesh.group is not None}, global_batch equal to replicate "
+          f"{made} (worlds {gb.offset}-{gb.offset + gb.local_worlds - 1} of {gb.global_worlds}); all_reduce of "
+          f"metrics_psum_example {float(ke):.6f} equal to the local sum {reduced}", flush=True)
+    if not (backend == "nccl" and mesh.group is not None and made and reduced):
+        fail("phase 12: the one-rank NCCL run")
+    torch.cuda.empty_cache()
+    return out
+
+
 def render_interaction(batch, dev):
     """One frame of the batch's world 0 through `render_states`, and a
     4-frame `InteractiveTestbed.record_gif` of Single Box on the card, when
@@ -1252,7 +1452,8 @@ def main():
         scene = catalog_scene(K1_CATALOG, solver)
         batch, _, cfg_c = catalog_batch(scene, dev)
         k1_catalog[solver] = check_k1(f"{K1_CATALOG[1]} after {K1_CATALOG_STEPS} steps", batch, cfg_c,
-                                      CATALOG_WORLDS, dev, card, steps=K1_CATALOG_STEPS, scene=scene, k2=False)
+                                      CATALOG_WORLDS, dev, card, steps=K1_CATALOG_STEPS, scene=scene, k2=False,
+                                      mixed=True)
     del batch
     torch.cuda.empty_cache()
 
@@ -1280,7 +1481,7 @@ def main():
         fail(f"the pyramid does not stand: displacement {drift} >= {MAX_DRIFT}")
     if launches != WARMUP + STEPS:
         fail(f"K2 launched {launches} times in {WARMUP + STEPS} steps")
-    del batch, state0, init_pos
+    del batch, init_pos
     torch.cuda.empty_cache()
 
     # ---- 5. card against CPU on small inputs of both paths
@@ -1394,13 +1595,18 @@ def main():
 
     catalog = []
     for key in scene_names():
-        for solver in (FUSED if key in CATALOG_ALL_SOLVERS else ("TGS_SOFT",)) + XLA_ONLY:
-            compare = solver in FUSED or key in XLA_CHECK_SCENES
+        # (solver, short): the scenes outside CATALOG_ALL_SOLVERS run the
+        # other fused solvers short, held card to twin (K1 on the last solve)
+        runs = [(solver, key not in CATALOG_ALL_SOLVERS and solver != "TGS_SOFT") for solver in FUSED]
+        for solver, short in runs + [(solver, False) for solver in XLA_ONLY]:
+            compare = not short and (solver in FUSED or key in XLA_CHECK_SCENES)
             catalog.append(run_catalog_scene(key, solver, dev, card, [fused_cuda.fused_solve, narrow_cuda.collide],
-                                             compare))
+                                             compare, short))
             torch.cuda.empty_cache()
-    print(f"[8] catalog: {len(catalog)} scene runs, every check passed; ms/step " + "; ".join(
-        f"{r['scene']} {r['solver']} {r['ms_per_step']:.2f}" for r in catalog) + f" on {card}", flush=True)
+    k1_short = [r["k1_err"] for r in catalog if r["k1_err"] is not None]
+    print(f"[8] catalog: {len(catalog)} scene runs, every check passed ({len(k1_short)} short fused runs with K1 "
+          f"equal to its twin on their last solve); ms/step " + "; ".join(
+              f"{r['scene']} {r['solver']} {r['ms_per_step']:.2f}" for r in catalog) + f" on {card}", flush=True)
 
     # ---- 9. the XLA route on paths (b) and (a)
     phase("9")
@@ -1423,9 +1629,12 @@ def main():
     # ---- 11. interaction on path (b)
     phase("11")
     interaction = run_interaction(dev, card, [fused_cuda.fused_solve, narrow_cuda.collide])
+    # ---- 12. the world batch split over mesh entries
+    phase("12")
+    split = run_split(dev, card, state0, cfg, [fused_cuda.fused_solve, narrow_cuda.collide])
     phase("end")
 
-    k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()] + [interaction["k2_err"]])
+    k2_err = max([max_abs] + [r[0] for r in k2_catalog.values()] + [interaction["k2_err"], split["manifold_err"]])
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {
@@ -1446,6 +1655,7 @@ def main():
             "catalog": {f"{k[0]}/{k[1]}": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"), r))
                         for k, r in k2_catalog.items()},
             "launches_phase11": interaction["k2_launches"], "steps_phase11": interaction["steps"],
+            "launches_phase12": {k: v[1] for k, v in split["launches"].items()}, "steps_phase12": split["steps"],
         },
     ] + [
         {
@@ -1454,7 +1664,8 @@ def main():
             "replaces": "solver2d_tpu/solvers/pallas_solver.py:53",
             "launches": k1_launches[solver],
             "max_abs_err": max([r[0] for r in k1[solver] + [k1_catalog[solver]]]
-                               + ([interaction["k1_err"]] if solver == "TGS_SOFT" else [])),
+                               + ([interaction["k1_err"]] if solver == "TGS_SOFT" else [])
+                               + [r["k1_err"] for r in catalog if r["k1_err"] is not None and r["solver"] == solver]),
             "ms": k1[solver][0][1], "plain_ms": k1[solver][0][2], "bound_ms": k1[solver][0][3],
             "bound_by": k1[solver][0][4], "library_ms": None,
             **{k: k1[solver][0][5][k] for k in ("call_ms", "phases", "us_per_phase", "registers", "spill_bytes",
@@ -1462,8 +1673,11 @@ def main():
             "ms_a": k1[solver][1][1], "bound_ms_a": k1[solver][1][3], "phases_a": k1[solver][1][5]["phases"],
             "ms_ragdoll_stress": k1_catalog[solver][1], "plain_ms_ragdoll_stress": k1_catalog[solver][2],
             "bound_ms_ragdoll_stress": k1_catalog[solver][3], "bound_by_ragdoll_stress": k1_catalog[solver][4],
-            **({"launches_phase11": interaction["k1_launches"], "steps_phase11": interaction["steps"]}
+            **({"launches_phase11": interaction["k1_launches"], "steps_phase11": interaction["steps"],
+                "launches_phase12": {k: v[0] for k, v in split["launches"].items() if "TGS_SOFT" in k},
+                "steps_phase12": split["steps"]}
                if solver == "TGS_SOFT" else {}),
+            "checked_phase8_short": sum(r["k1_err"] is not None and r["solver"] == solver for r in catalog),
         }
         for solver, label in zip(FUSED, ("TGS_Soft", "SoftStep", "PGS_Soft"))
     ]}), flush=True)

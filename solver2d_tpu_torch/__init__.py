@@ -3,7 +3,8 @@ narrowphase (K2) and the fused soft solve (K1) as hand-written CUDA kernels
 for Hopper, the JAX package's XLA solvers (all ten) in plain PyTorch on
 the per-world step, and its world queries, runtime edits, checks,
 checkpoints, handles, settings, timing, debug draw and interactive
-testbed.
+testbed, the batched scene compiler, and world batches split over devices
+and processes (`parallel`).
 
 The port of the JAX package `solver2d_tpu` (which stays as the reference).
 It imports neither JAX nor that package. Entry points create tensors on
@@ -16,8 +17,9 @@ from .models.contact_scenes import pyramid_world
 from .models.joint_scenes import bridge
 from .models import Scene, build, scene_names
 from .parallel.batch import batch_states, batched_step, randomize_velocities, replicate, replicate_state
+from .parallel.sharding import make_mesh, shard_state, sharded_step
 from .state import Bodies, Contacts, Diagnostics, Joints, Shapes, State, state_from_numpy, to_numpy
-from .step import step_batch
+from .step import make_step, step_batch
 from .world import BodyDef, ShapeDef, World
 
 __version__ = "0.1.0"
@@ -25,6 +27,6 @@ __version__ = "0.1.0"
 __all__ = [
     "Bodies", "BodyDef", "BodyType", "Contacts", "Diagnostics", "Joints", "Scene", "ShapeDef", "ShapeType",
     "Shapes", "SimConfig", "SolverType", "State", "World", "__version__", "batch_states", "batched_step", "bridge",
-    "build", "pyramid_world", "randomize_velocities", "replicate", "replicate_state", "scene_names",
-    "state_from_numpy", "step_batch", "to_numpy",
+    "build", "make_mesh", "make_step", "pyramid_world", "randomize_velocities", "replicate", "replicate_state",
+    "scene_names", "shard_state", "sharded_step", "state_from_numpy", "step_batch", "to_numpy",
 ]

@@ -4,7 +4,7 @@ An own copy of the JAX package's `interactive.py`. It reproduces
 samples/main.cpp's interactive controls (reference: samples/main.cpp:
 151-289, :405-502) on a matplotlib window, driving the same multi-solver
 lockstep worlds as the headless CLI (testbed.run_scene), each a batch of
-one world stepped by the per-world step (`batched_step`: K2, then K1 for
+one world stepped by the per-world step (`step.make_step`: K2, then K1 for
 the soft solvers where a world fits it, else the XLA solvers) on
 `device`, the card unless the caller asks for the CPU:
 
@@ -33,8 +33,9 @@ import torch
 
 from .config import SimConfig, SolverType
 from .models import build, scene_names
-from .parallel.batch import batched_step, replicate
+from .parallel.batch import replicate
 from .queries import attach_mouse_joint, detach_mouse_joint, move_mouse_target, pick_body
+from .step import make_step
 from .utils.draw import SOLVER_COLORS, DrawOptions, draw_world
 from .utils.metrics import statistics
 
@@ -101,7 +102,7 @@ class InteractiveTestbed:
                 extra_iterations=self.extra_iterations,
                 warm_start=self.warm_start,
             )
-            self.runs[solver] = _Run(scene, replicate(state, 1), cfg, batched_step(cfg))
+            self.runs[solver] = _Run(scene, replicate(state, 1), cfg, make_step(cfg))
         self.step_count = 0
         self.dragging = False
 
@@ -117,7 +118,7 @@ class InteractiveTestbed:
         self.iterations = max(1, self.iterations + delta)
         for run in self.runs.values():
             run.cfg = run.cfg.replace(iterations=self.iterations)
-            run.stepf = batched_step(run.cfg)
+            run.stepf = make_step(run.cfg)
 
     def _change_solver(self, delta):
         """Cycle the solver under the cursor through the enum

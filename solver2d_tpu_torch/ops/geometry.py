@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import MAX_POLYGON_VERTICES, PI, ShapeType
+from ..config import MAX_POLYGON_VERTICES, ShapeType
 from . import math2d as m
 
 
@@ -107,73 +107,12 @@ class MassData:
 
 
 def compute_mass(geom: ShapeGeom, density: float) -> MassData:
-    """Mass properties of a shape about its local origin: a circle (count
-    1), a capsule or segment (count 2) or a rounded polygon (reference:
-    src/geometry.c:117-286). The arithmetic is float32, operation for
-    operation as the scene compiler csrc/s2native.cpp (`s2n_shape_mass`)
-    computes it, so that a frozen world's masses and inertias equal the JAX
-    package's to the bit."""
-    f = np.float32
-    count = geom.count
-    radius = f(geom.radius)
-    density = f(density)
-    pts = geom.verts[:count].astype(f)
-    rr = radius * radius
-    if count == 1:
-        mass = density * f(PI) * rr
-        c = pts[0]
-        return MassData(mass, c.copy(), mass * (f(0.5) * rr + (c[0] * c[0] + c[1] * c[1])))
-    if count == 2:
-        dx, dy = pts[1][0] - pts[0][0], pts[1][1] - pts[0][1]
-        length = np.sqrt(dx * dx + dy * dy)
-        ll = length * length
-        mass = density * (f(PI) * radius + f(2) * length) * radius
-        center = np.array([f(0.5) * (pts[0][0] + pts[1][0]), f(0.5) * (pts[0][1] + pts[1][1])], f)
-        box_inertia = (f(4) * rr + ll) / f(12)
-        return MassData(mass, center, mass * (f(0.5) * (rr + ll) + box_inertia))
-    if radius > 0:
-        # push vertices out along the corner bisectors (geometry.c:203-225)
-        normals = geom.normals[:count].astype(f)
-        out = np.zeros_like(pts)
-        for i in range(count):
-            n1, n2 = normals[count - 1 if i == 0 else i - 1], normals[i]
-            mid_x, mid_y = n1[0] + n2[0], n1[1] + n2[1]
-            ml = np.sqrt(mid_x * mid_x + mid_y * mid_y)
-            if ml > f(1e-12):
-                mid_x, mid_y = mid_x / ml, mid_y / ml
-            sin_half = mid_x * n1[0] - mid_y * -n1[1]
-            offset = radius / sin_half if sin_half > f(1.1920929e-07) else radius
-            out[i] = (pts[i][0] + offset * mid_x, pts[i][1] + offset * mid_y)
-        pts = out
-
-    cx = cy = area = inertia = f(0)
-    rx, ry = pts[0]
-    inv3 = f(1) / f(3)
-    for i in range(1, count - 1):
-        e1x, e1y = pts[i][0] - rx, pts[i][1] - ry
-        e2x, e2y = pts[i + 1][0] - rx, pts[i + 1][1] - ry
-        D = e1x * e2y - e1y * e2x
-        tri = f(0.5) * D
-        area += tri
-        cx += tri * inv3 * (e1x + e2x)
-        cy += tri * inv3 * (e1y + e2y)
-        intx2 = e1x * e1x + e2x * e1x + e2x * e2x
-        inty2 = e1y * e1y + e2y * e1y + e2y * e2y
-        inertia += (f(0.25) * inv3 * D) * (intx2 + inty2)
-
-    mass = density * area
-    inv_area = f(1) / area if area > f(1e-12) else f(0)
-    cx, cy = cx * inv_area, cy * inv_area
-    wx, wy = rx + cx, ry + cy
-    inertia *= density
-    inertia += mass * ((wx * wx + wy * wy) - (cx * cx + cy * cy))
-    return MassData(mass, np.array([wx, wy], f), inertia)
-
-
-def compute_mass_f64(geom: ShapeGeom, density: float) -> MassData:
-    """`compute_mass` in float64, as the JAX `World` computes a body's mass
-    when a build-time call needs it before freezing (its
-    `apply_linear_impulse`): the same formulas, rounded once at the end."""
+    """Mass properties of a shape about its local origin in float64, as the
+    JAX package's `compute_mass` (reference: src/geometry.c:117-286): a
+    circle (count 1), a capsule or segment (count 2) or a rounded polygon.
+    The `World` takes it where the JAX `World` does (`defer_mass=False`, a
+    build-time `apply_linear_impulse`); the float32 masses of `freeze` come
+    from the scene compiler (`native.compile_scene`)."""
     count, radius = geom.count, geom.radius
     pts = geom.verts[:count].astype(np.float64)
     rr = radius * radius

@@ -6,9 +6,11 @@ time. Its solve, given the step's `loops.Hints` (the live colors and the
 depth of the ordered sums, taken from the host first), syncs with the host
 nowhere, so a CUDA graph can hold it: the first step with a given key runs
 eagerly, the second captures the solve, and later ones replay it. A key
-is the configuration, the input shapes and the hints, so a step whose live
-colors change runs eagerly once more. Replays run the same kernels on the
-same inputs as the eager solve, so their results are equal bit for bit.
+is the configuration, the device, the current stream, the input shapes and
+the hints, so a step whose live colors change runs eagerly once more, and
+a graph never replays on a stream other than its own. Replays run the
+same kernels on the same inputs as the eager solve, so their results are
+equal bit for bit.
 
 Only tensors on a CUDA device take this path; on the CPU the solve runs
 eagerly. `ENABLED = False` turns graphs off (eager everywhere).
@@ -28,6 +30,8 @@ MAX_GRAPHS = 8
 
 _graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
 _seen: set = set()
+# a side stream per device to capture on
+_capture_streams: dict = {}
 
 
 def _flatten(tree, out):
@@ -60,7 +64,10 @@ class _Graph:
         self.inputs = [x.clone() for x in flat]
         static_args = build(iter(self.inputs))
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        dev = flat[0].device
+        if dev not in _capture_streams:
+            _capture_streams[dev] = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev), torch.cuda.graph(self.graph, stream=_capture_streams[dev]):
             out = fn(*static_args)
         self.outputs = []
         self.rebuild = _flatten(out, self.outputs)
@@ -86,7 +93,11 @@ def run(key, fn, args):
     first = next(iter(x for x in _iter_tensors(args)), None)
     if not ENABLED or first is None or not first.is_cuda:
         return fn(*args)
-    key = (key, first.device, tuple(tuple(x.shape) for x in _iter_tensors(args)))
+    # a graph replays on the stream it was made for: two shards of one
+    # card (`parallel.sharding`) step on two streams, and one graph's
+    # static buffers shared between them would race
+    stream = torch.cuda.current_stream(first.device).cuda_stream
+    key = (key, first.device, stream, tuple(tuple(x.shape) for x in _iter_tensors(args)))
     graph = _graphs.get(key)
     if graph is None:
         if key not in _seen:

@@ -43,6 +43,7 @@ import torch
 from .config import BUCKETABLE_SOLVERS, SPECULATIVE_DISTANCE, SimConfig, use_fused
 from .ops import broadphase, coloring
 from .ops.geometry import compute_aabbs
+from .ops.manifold import ManifoldOut, from_lanes, geom_rows
 from .ops.narrow_cuda import collide
 from .solvers.common import BodyMap, ContactCons, make_body_map
 from .solvers.fused_solve import FusedInputs
@@ -56,18 +57,6 @@ from .state import Contacts, Diagnostics, Joints, State, sticky_width
 NARROWPHASES = ("xla", "lanes", "pallas")
 
 I32 = torch.int32
-
-
-class ManifoldOut(NamedTuple):
-    normal: torch.Tensor       # [..., 2]
-    anchor_a: torch.Tensor     # [..., 2, 2]
-    anchor_b: torch.Tensor
-    separation: torch.Tensor   # [..., 2]
-    point_id: torch.Tensor     # [..., 2]
-    point_count: torch.Tensor
-    cache_count: torch.Tensor
-    cache_ia: torch.Tensor     # [..., 3]
-    cache_ib: torch.Tensor
 
 
 def _apply_manifolds(contacts: Contacts, out: ManifoldOut) -> Contacts:
@@ -127,31 +116,7 @@ def _apply_manifolds(contacts: Contacts, out: ManifoldOut) -> Contacts:
 
 def _geom_table(shapes):
     """The shape table of K2 [..., S, 34]: vx, vy, nx, ny rows, count, radius."""
-    return torch.cat(
-        [
-            shapes.verts[..., 0], shapes.verts[..., 1], shapes.normals[..., 0], shapes.normals[..., 1],
-            shapes.count[..., None].to(torch.float32), shapes.radius[..., None],
-        ],
-        dim=-1,
-    )
-
-
-def _manifold_out(fout, iout, cout) -> ManifoldOut:
-    """K2's outputs [W, 12|3|7, C] as per-contact fields [W, C, ...]."""
-    f = fout.transpose(1, 2)  # [W, C, 12]
-    i = iout.transpose(1, 2)
-    c = cout.transpose(1, 2)
-    return ManifoldOut(
-        normal=f[..., 0:2],
-        anchor_a=f[..., 2:6].reshape(f.shape[:2] + (2, 2)),
-        anchor_b=f[..., 6:10].reshape(f.shape[:2] + (2, 2)),
-        separation=f[..., 10:12],
-        point_id=i[..., 0:2],
-        point_count=i[..., 2],
-        cache_count=c[..., 0],
-        cache_ia=c[..., 1:4],
-        cache_ib=c[..., 4:7],
-    )
+    return geom_rows(shapes.verts, shapes.normals, shapes.count, shapes.radius)
 
 
 def _cache(contacts: Contacts):
@@ -175,7 +140,7 @@ def narrow_inputs(batch: State, contacts: Contacts):
 
 def update_manifolds_lane(batch: State, contacts: Contacts, config: SimConfig) -> Contacts:
     """The narrowphase of a lockstep batch through K2, then id matching."""
-    out = _manifold_out(*collide(*narrow_inputs(batch, contacts), config.gjk_iters))
+    out = from_lanes(*collide(*narrow_inputs(batch, contacts), config.gjk_iters))
     return _apply_manifolds(contacts, out)
 
 
@@ -212,7 +177,7 @@ def update_manifolds(batch: State, contacts: Contacts, gjk_iters: int, impl: str
     def worlds(x):  # [1, k, W*C] -> [W, k, C]
         return x[0].reshape(x.shape[1], W, C).transpose(0, 1)
 
-    return _apply_manifolds(contacts, _manifold_out(worlds(fout), worlds(iout), worlds(cout)))
+    return _apply_manifolds(contacts, from_lanes(worlds(fout), worlds(iout), worlds(cout)))
 
 
 def _post_solve(batch: State, new_bodies, contacts, joints, pair_count, pair_overflow, sbt, touching,
@@ -448,3 +413,29 @@ def step(batch: State, dt: float, config: SimConfig) -> State:
     dt_t = torch.tensor(float(dt), dtype=torch.float32, device=batch.gravity.device)
     new_bodies, contacts, joints = solve_xla(batch.bodies, contacts, joints, colors, batch.gravity, dt_t, config)
     return _post_solve(batch, new_bodies, contacts, joints, pairs.count, pairs.overflow, sbt, touching, overflow)
+
+
+_STEP_CACHE: dict = {}
+
+
+def make_step(config: SimConfig):
+    """step(batch, dt) for `config`, memoised per config (as the JAX
+    package's `make_step`, without its jit): `step_batch` under
+    `config.lane_solve`, else the per-world `step`."""
+    f = _STEP_CACHE.get(config)
+    if f is None:
+        fn = step_batch if config.lane_solve else step
+
+        def f(batch: State, dt: float) -> State:
+            return fn(batch, dt, config)
+
+        f = _STEP_CACHE.setdefault(config, f)
+    return f
+
+
+def run(state: State, config: SimConfig, steps: int, dt=1.0 / 60.0) -> State:
+    """`steps` steps of a [W, ...] batch (`make_step(config)` in a loop)."""
+    f = make_step(config)
+    for _ in range(steps):
+        state = f(state, dt)
+    return state

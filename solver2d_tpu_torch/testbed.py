@@ -3,7 +3,7 @@
 An own copy of the JAX package's `testbed.py` for the port (reference:
 samples/main.cpp, sample.cpp): runs one catalog scene under one or more
 solvers (one world per solver, main.cpp:705-711), steps them in
-lockstep with the scene's hooks on the per-world step (`batched_step`: K2,
+lockstep with the scene's hooks on the per-world step (`step.make_step`: K2,
 then K1 for the soft solvers where a world fits it, else the XLA solvers),
 prints the per-solver stats overlay (sample.cpp:144-156), and renders the
 overlaid solvers' frames on request (`--render`, `--render-every`, the
@@ -36,7 +36,8 @@ import torch
 
 from .config import XLA_SOLVERS, SolverType
 from .models import build, scene_names
-from .parallel.batch import batched_step, replicate
+from .parallel.batch import replicate
+from .step import make_step
 from .utils.metrics import statistics
 
 
@@ -82,7 +83,7 @@ def run_scene(
             device=dev, iterations=iterations, extra_iterations=extra_iterations, warm_start=warm_start,
             contact_bucket_cap=bucket_cap, **overrides,
         )
-        runs[solver] = dict(scene=scene, state=replicate(state, 1), cfg=cfg, step=batched_step(cfg), ms=0.0)
+        runs[solver] = dict(scene=scene, state=replicate(state, 1), cfg=cfg, step=make_step(cfg), ms=0.0)
 
     gif = bool(render) and render.endswith(".gif")
     frames = []

@@ -29,6 +29,7 @@ from .config import (
     SolverType,
     k1_fits,
 )
+from . import native
 from .ops import geometry
 from .state import Bodies, Contacts, Diagnostics, Joints, Shapes, State
 
@@ -115,9 +116,15 @@ def _round(n, m):
 class World:
     """Scene builder. One instance per scene; `freeze()` to simulate."""
 
-    def __init__(self, solver: SolverType = SolverType.PGS_NGS_BLOCK, gravity=(0.0, -10.0)):
+    def __init__(self, solver: SolverType = SolverType.PGS_NGS_BLOCK, gravity=(0.0, -10.0), defer_mass: bool = True):
+        """defer_mass: compute every body's mass at `freeze`, all in one call
+        of the scene compiler (`native.compile_scene`, float32); False
+        computes a body's mass in float64 at each `create_shape`, as the JAX
+        `World(defer_mass=False)` does. A build-time call that needs a mass
+        (`apply_linear_impulse`) computes it on demand either way."""
         self.solver = solver
         self.gravity = np.asarray(gravity, np.float64)
+        self.defer_mass = defer_mass
         self.bodies: list[_Body] = []
         self.shapes: list[_Shape] = []
         self.joints: list[_Joint] = []
@@ -132,13 +139,15 @@ class World:
 
     def create_shape(self, body: int, geom: geometry.ShapeGeom, def_: Optional[ShapeDef] = None, **kw) -> int:
         """Attach a shape to a body (reference: src/body.c:220-314). Mass
-        properties wait for `freeze`."""
+        properties wait for `freeze` unless `defer_mass` is off."""
         if def_ is None:
             def_ = ShapeDef(**kw)
         elif kw:
             def_ = dataclasses.replace(def_, **kw)
         self.shapes.append(_Shape(body, geom, def_))
         self.bodies[body].shapes.append(len(self.shapes) - 1)
+        if def_.density > 0.0 and not self.defer_mass:
+            self._compute_mass(body)
         return len(self.shapes) - 1
 
     def create_polygon_shape(self, body: int, geom_or_points, def_: Optional[ShapeDef] = None, **kw) -> int:
@@ -159,10 +168,10 @@ class World:
     def apply_linear_impulse(self, body: int, impulse, point):
         """Build-time impulse at a world point (reference: src/body.c:316-384).
         It needs the body's mass now: like the JAX `World`, it computes it
-        in float64 (`geometry.compute_mass_f64`), and `freeze` keeps it."""
+        in float64 (`geometry.compute_mass`), and `freeze` keeps it."""
         b = self.bodies[body]
-        if b.mass == 0.0 and b.def_.type == BodyType.DYNAMIC:
-            self._compute_mass_f64(body)
+        if self.defer_mass and b.mass == 0.0 and b.def_.type == BodyType.DYNAMIC:
+            self._compute_mass(body)
         if b.mass <= 0.0:
             return
         impulse = np.asarray(impulse, np.float64)
@@ -207,49 +216,54 @@ class World:
         ))
         return len(self.joints) - 1
 
-    def _compute_mass(self, body_idx: int):
-        """reference: src/body.c:152-218, with the center-of-mass velocity
-        fixup of :215-217. float32, accumulated as the scene compiler
-        csrc/s2native.cpp (`s2n_compile_scene`) accumulates it."""
-        f = np.float32
-        b = self.bodies[body_idx]
-        old_center_offset = b.local_center.copy()
-        b.mass = b.inertia = 0.0
-        b.local_center = np.zeros(2)
-        if b.def_.type != BodyType.DYNAMIC:
+    def _batch_compute_mass(self):
+        """The deferred mass of every dynamic body that has shapes and no
+        mass yet, in one call of the scene compiler (`native.compile_scene`;
+        reference: src/body.c:152-218), each with the center-of-mass
+        velocity fix-up of :215-217, as the JAX `World` does at freeze."""
+        pending = [
+            i for i, b in enumerate(self.bodies)
+            if b.def_.type == BodyType.DYNAMIC and b.mass == 0.0 and b.shapes
+        ]
+        if not pending:
             return
-        mass = inertia = cx = cy = f(0)
-        for si in b.shapes:
-            s = self.shapes[si]
-            if f(s.def_.density) == 0:
-                continue
-            md = geometry.compute_mass(s.geom, s.def_.density)
-            mass += md.mass
-            cx += md.mass * md.center[0]
-            cy += md.mass * md.center[1]
-            inertia += md.inertia
-        if mass > 0:
-            inv_mass = f(1) / mass
-            cx, cy = cx * inv_mass, cy * inv_mass
-        inertia -= mass * (cx * cx + cy * cy)
-        b.mass = float(mass)
-        b.inertia = float(inertia) if inertia > 0 else 0.0
-        b.local_center = local_center = np.array([cx, cy], np.float64)
-        rot = _rot_of(b.def_.angle)
-        delta_center = _rotate(rot, local_center - old_center_offset)
-        w = b.def_.angular_velocity
-        b.linear_velocity = b.linear_velocity + w * np.array([-delta_center[1], delta_center[0]])
+        out = native.compile_scene(
+            np.stack([s.geom.verts for s in self.shapes]).astype(np.float32),
+            np.stack([s.geom.normals for s in self.shapes]).astype(np.float32),
+            np.array([s.geom.count for s in self.shapes], np.int32),
+            np.array([s.geom.radius for s in self.shapes], np.float32),
+            np.array([s.def_.density for s in self.shapes], np.float32),
+            np.array([s.body for s in self.shapes], np.int32),
+            np.array([b.def_.position for b in self.bodies], np.float32).reshape(-1, 2),
+            np.array([b.def_.angle for b in self.bodies], np.float32),
+            np.array([int(b.def_.type) for b in self.bodies], np.int32),
+            SPECULATIVE_DISTANCE, AABB_MARGIN,
+        )
+        for i in pending:
+            b = self.bodies[i]
+            b.mass = float(out["mass"][i])
+            b.inertia = float(out["inertia"][i])
+            old_center = b.local_center.copy()
+            b.local_center = out["local_center"][i].astype(np.float64)
+            delta_center = _rotate(_rot_of(b.def_.angle), b.local_center - old_center)
+            w = b.def_.angular_velocity
+            b.linear_velocity = b.linear_velocity + w * np.array([-delta_center[1], delta_center[0]])
 
-    def _compute_mass_f64(self, body_idx: int):
-        """`_compute_mass` in float64, the JAX `World`'s on-demand path."""
+    def _compute_mass(self, body_idx: int):
+        """A body's mass properties in float64 (reference:
+        src/body.c:152-218, with the center-of-mass velocity fix-up of
+        :215-217): the JAX `World`'s `_compute_mass`, its on-demand path."""
         b = self.bodies[body_idx]
         old_center_offset = b.local_center.copy()
         mass, inertia, center = 0.0, 0.0, np.zeros(2)
+        if b.def_.type != BodyType.DYNAMIC:
+            b.mass, b.inertia, b.local_center = 0.0, 0.0, center
+            return
         for si in b.shapes:
             s = self.shapes[si]
             if s.def_.density == 0.0:
                 continue
-            md = geometry.compute_mass_f64(s.geom, s.def_.density)
+            md = geometry.compute_mass(s.geom, s.def_.density)
             mass += md.mass
             center += md.mass * md.center
             inertia += md.inertia
@@ -401,9 +415,8 @@ class World:
             )
             config = config.replace(incremental_coloring=False)
 
-        for i, b in enumerate(self.bodies):
-            if b.def_.type == BodyType.DYNAMIC and b.mass == 0.0 and b.shapes:
-                self._compute_mass(i)
+        if self.defer_mass:
+            self._batch_compute_mass()
 
         B = _zeros_bodies(config.max_bodies)
         for i, b in enumerate(self.bodies):

@@ -621,3 +621,115 @@ def test_pick_and_drag_on_the_card(card):
     d0 = (center - goal).norm(dim=-1)
     d1 = (gpu.bodies.position[:, top].cpu() - goal).norm(dim=-1)
     assert bool((d1 < d0).all())
+
+
+# ------------------------------------------- worlds split over mesh entries
+
+
+def _split_scene(route):
+    """A base-4 pyramid batch of 4 worlds with jittered velocities (of
+    order 1e-3 on the lane path, whose shards share their world 0's
+    structure) and its config: the lane step, the per-world fused route
+    (TGS_Soft, K1) or the XLA route (PGS_NGS_Block)."""
+    from solver2d_tpu_torch import SolverType, pyramid_world, replicate
+    from solver2d_tpu_torch.parallel import apply_velocity_deltas
+
+    solver = "PGS_NGS_BLOCK" if route == "xla" else "TGS_SOFT"
+    kw = dict(contact_bucket_cap=-1) if route == "lane" else dict(lane_solve=False)
+    state, cfg = pyramid_world(SolverType[solver], 4)[0].freeze(device="cpu", **kw)
+    assert cfg.lane_solve == (route == "lane") and bool(cfg.use_fused_solver) == (route == "fused")
+    g = torch.Generator().manual_seed(0)
+    batch = replicate(state, 4)
+    scale = (1e-3 if route == "lane" else 0.2) * torch.arange(4.0)[:, None, None]
+    dv = torch.randn(batch.bodies.v.shape, generator=g) * scale
+    return apply_velocity_deltas(batch, dv, torch.zeros_like(batch.bodies.w)), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["lane", "fused", "xla"])
+def test_two_shards_on_one_card_equal_the_unsharded_step(card, route):
+    """A mesh that lists the card twice: each shard on its own stream, 5
+    steps (the XLA solve replayed from a graph of each shard's own from the
+    third) equal the unsharded step on the card bit for bit; K2 once a
+    shard a step, K1 too on the fused route."""
+    from solver2d_tpu_torch import make_mesh, make_step, sharded_step
+    from solver2d_tpu_torch.solvers import fused_cuda, graphs
+
+    batch, cfg = _split_scene(route)
+    batch = batch.to(card)
+    mesh = make_mesh([card, card])
+    assert mesh.streams[0] != mesh.streams[1]
+    graphs.clear()
+    stepf, whole_step = sharded_step(cfg, mesh), make_step(cfg)
+    split, whole = batch, batch
+    for _ in range(5):
+        whole = whole_step(whole, 1.0 / 60.0)
+    k1, k2 = fused_cuda.fused_solve.launches, narrow_cuda.collide.launches
+    for _ in range(5):
+        split = stepf(split, 1.0 / 60.0)
+    assert (fused_cuda.fused_solve.launches - k1, narrow_cuda.collide.launches - k2) == (
+        10 if route == "fused" else 0, 10)
+    if route == "xla":  # a graph of each shard's stream
+        assert {key[2] for key in graphs._graphs} >= {s.cuda_stream for s in mesh.streams}
+    got = split.gather(card)
+    torch.cuda.synchronize()
+    for name in ("position", "rot", "v", "w"):
+        assert torch.equal(getattr(got.bodies, name), getattr(whole.bodies, name)), name
+    assert torch.equal(got.contacts.color, whole.contacts.color)
+    assert torch.equal(got.contacts.normal_impulse, whole.contacts.normal_impulse)
+    assert int(whole.diag.contact_count.min()) > 0
+
+
+@pytest.mark.cuda
+def test_a_graph_replays_only_on_its_own_stream(card):
+    """The same key on two streams makes two graphs (each with its own
+    static buffers), each replayed on its stream: the repair of two shards
+    of one card sharing one graph's buffers from two streams."""
+    from solver2d_tpu_torch.solvers import graphs
+
+    graphs.clear()
+    x = torch.arange(8.0, device=card)
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    outs = []
+    for k in range(3):
+        for i, s in enumerate(streams):
+            s.wait_stream(torch.cuda.current_stream(card))
+            with torch.cuda.stream(s):
+                outs.append(graphs.run("twice", lambda t: (2.0 * t,), ((x + 10 * i + k),))[0])
+            torch.cuda.current_stream(card).wait_stream(s)
+    torch.cuda.synchronize()
+    keys = [key for key in graphs._graphs if key[0] == "twice"]
+    assert sorted(key[2] for key in keys) == sorted(s.cuda_stream for s in streams)
+    for k in range(3):
+        for i in range(2):
+            assert torch.equal(outs[2 * k + i], 2.0 * (x + 10 * i + k))
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_reduces_like_one_process(card, tmp_path):
+    """`initialize` with one NCCL rank (a file:// store): the mesh takes the
+    group in, `global_batch` equals `replicate`, the all_reduce of
+    `metrics_psum_example` equals the local sum."""
+    from solver2d_tpu_torch import SolverType, pyramid_world, replicate
+    from solver2d_tpu_torch.parallel import metrics_psum_example
+    from solver2d_tpu_torch.parallel.distributed import global_batch, initialize, make_mesh
+
+    initialize(f"file://{tmp_path / 'store'}", 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = make_mesh([card, card])
+        assert mesh.group is not None
+        state, _ = pyramid_world(SolverType.TGS_SOFT, 4)[0].freeze(device=card, lane_solve=False)
+        batch = global_batch(state, 2, mesh)
+        assert (batch.offset, batch.global_worlds) == (0, 4)
+        whole = replicate(state, 4)
+        assert torch.equal(batch.gather(card).bodies.position, whole.bodies.position)
+        whole.bodies.v = torch.randn_like(whole.bodies.v)
+        batch.shards = [whole.map(lambda x: x[:2]), whole.map(lambda x: x[2:])]
+        got = metrics_psum_example(batch, mesh)
+        want = 0.5 * torch.sum(whole.bodies.v[:2] ** 2) + 0.5 * torch.sum(whole.bodies.v[2:] ** 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    finally:
+        torch.distributed.destroy_process_group()

@@ -94,6 +94,15 @@ SCRIPT = textwrap.dedent(
         checkpoint.save_npz(os.path.join(tmp, "s.npz"), batch)
         back = checkpoint.load_npz(os.path.join(tmp, "s.npz"), device="cpu")
     assert torch.equal(back.bodies.position, batch.bodies.position) and bool(back.joints.alive[:, 0].all())
+    # the split step, the per-pair manifold and the scene compiler
+    import solver2d_tpu_torch.parallel.distributed, solver2d_tpu_torch.parallel.sharding  # noqa: E401,F401
+    from solver2d_tpu_torch import make_mesh, native, sharded_step
+    from solver2d_tpu_torch.ops import manifold
+    assert native.available() and native.compile_scene.__module__ == "solver2d_tpu_torch.native"
+    assert manifold.collide.__module__ == "solver2d_tpu_torch.ops.manifold"
+    state, cfg = w3.freeze(device="cpu", lane_solve=False, iterations=1)
+    out = sharded_step(cfg, make_mesh(["cpu"] * 2))(replicate(state, 4), 1.0 / 60.0)
+    assert len(out.shards) == 2 and int(out.gather().diag.contact_count.min()) > 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "solver2d_tpu"))
     assert not [m for m in loaded if sys.modules[m] is not None], loaded
     print("isolated ok")

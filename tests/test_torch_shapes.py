@@ -2,9 +2,9 @@
 shape constructors) against the JAX package, on seeded numpy inputs.
 
 Vertices, normals, counts and radii of every constructor are equal; mass,
-center and inertia are bit-equal: the port's float32 `compute_mass` to the
-JAX `World`'s native scene compiler (`csrc/s2native.cpp:s2n_shape_mass`),
-the port's `compute_mass_f64` to the JAX package's float64 `compute_mass`
+center and inertia are bit-equal: the port's float32 scene compiler
+(`native.shape_mass`) to the JAX `World`'s (`csrc/s2native.cpp:
+s2n_shape_mass`), the port's float64 `compute_mass` to the JAX package's
 (the path of its build-time `apply_linear_impulse`). Hulls are equal."""
 
 import numpy as np
@@ -18,6 +18,7 @@ from solver2d_tpu.ops import geometry as jgeom
 from solver2d_tpu.ops.hull import compute_hull as jax_hull
 from solver2d_tpu.world import World as JWorld
 from solver2d_tpu_torch import BodyType, SolverType, World, to_numpy
+from solver2d_tpu_torch import native as port_native
 from solver2d_tpu_torch.ops import geometry
 from solver2d_tpu_torch.ops.hull import compute_hull
 from torch_parity import assert_tree_close, np_tree
@@ -61,11 +62,11 @@ def test_constructors_and_mass_match_jax(seed):
         assert g.radius == j.radius, kind
         np.testing.assert_array_equal(g.verts, j.verts, err_msg=kind)
         np.testing.assert_array_equal(g.normals, j.normals, err_msg=kind)
-        m32 = geometry.compute_mass(g, density)
+        m32, c32, i32 = port_native.shape_mass(g.verts, g.normals, g.count, g.radius, density)
         m, c, inertia = native.shape_mass(j.verts, j.normals, j.count, j.radius, density)
-        assert (np.float32(m32.mass), np.float32(m32.inertia)) == (np.float32(m), np.float32(inertia)), kind
-        np.testing.assert_array_equal(np.asarray(m32.center, np.float32), c, err_msg=kind)
-        m64, ref = geometry.compute_mass_f64(g, density), jgeom.compute_mass(j, density)
+        assert (np.float32(m32), np.float32(i32)) == (np.float32(m), np.float32(inertia)), kind
+        np.testing.assert_array_equal(c32, c, err_msg=kind)
+        m64, ref = geometry.compute_mass(g, density), jgeom.compute_mass(j, density)
         assert (m64.mass, m64.inertia) == (ref.mass, ref.inertia), kind
         np.testing.assert_array_equal(m64.center, ref.center, err_msg=kind)
 
